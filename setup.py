@@ -10,7 +10,14 @@ setup(
         "TPU-native differentiable volumetric-primitive renderer "
         "(JAX/XLA/Pallas rebuild of volprim)"
     ),
-    packages=find_packages(include=["volprim_tpu", "volprim_tpu.*"]),
+    packages=find_packages(
+        include=[
+            "volprim_tpu", "volprim_tpu.*",
+            "volprim_tpu_torch", "volprim_tpu_torch.*",
+        ]
+    ),
+    # the PyTorch port builds its CUDA kernels from these sources at first use
+    package_data={"volprim_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[
         Extension(
             "volprim_native",

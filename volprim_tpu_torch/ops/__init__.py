@@ -1,0 +1,22 @@
+"""Pure-math ops: quaternions, quadric forms, kernels, SH (torch)."""
+
+import torch
+
+from . import kernels, quadric, quaternion, sh
+from .kernels import Kernel
+from .quadric import QuadricCoeffs, intersect_extent, ray_prim_coeffs
+
+
+def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
+    """sRGB EOTF (volprim_tpu.ops.srgb_to_linear)."""
+    return torch.where(
+        x <= 0.04045,
+        x / 12.92,
+        ((torch.clamp(x, min=0.04045) + 0.055) / 1.055) ** 2.4,
+    )
+
+
+__all__ = [
+    "Kernel", "QuadricCoeffs", "intersect_extent", "kernels", "quadric",
+    "quaternion", "ray_prim_coeffs", "sh", "srgb_to_linear",
+]

@@ -1,0 +1,91 @@
+"""Ray/primitive quadric-form coefficients (volprim_tpu.ops.quadric).
+
+Along a ray ``o + t d`` a primitive (rotation R, scales s, center c) has the
+Mahalanobis quadratic ``q(t) = a t^2 + 2 b t + c0`` with
+``M = R diag(s)^-2 R^T``, ``a = d^T M d``, ``b = d^T M (o - c)``,
+``c0 = (o - c)^T M (o - c)``. Only what the exact integrator (models/rf.py)
+calls is ported here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import quaternion
+
+
+class QuadricCoeffs(NamedTuple):
+    """Per-(ray, primitive) quadratic coefficients, each shaped [R, C]."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+
+
+def ray_prim_coeffs(o, d, centers, scales, quats) -> QuadricCoeffs:
+    """All-pairs coefficients: rays o, d [R, 3] x primitives [C, ...] -> [R, C].
+
+    Written component-wise (no [R, C, 3] temporaries), like the reference."""
+    rot = quaternion.to_rotation_matrix(quats)  # [C, 3, 3], world <- local
+    inv_s2 = 1.0 / (scales * scales)  # [C, 3]
+    a = torch.zeros((o.shape[0], centers.shape[0]), dtype=o.dtype, device=o.device)
+    b = torch.zeros_like(a)
+    c = torch.zeros_like(a)
+    for i in range(3):
+        r0 = rot[:, 0, i][None, :]
+        r1 = rot[:, 1, i][None, :]
+        r2 = rot[:, 2, i][None, :]
+        w_i = d[:, 0:1] * r0 + d[:, 1:2] * r1 + d[:, 2:3] * r2
+        p_i = (
+            (o[:, 0:1] - centers[None, :, 0]) * r0
+            + (o[:, 1:2] - centers[None, :, 1]) * r1
+            + (o[:, 2:3] - centers[None, :, 2]) * r2
+        )
+        isi = inv_s2[None, :, i]
+        a = a + w_i * w_i * isi
+        b = b + w_i * p_i * isi
+        c = c + p_i * p_i * isi
+    return QuadricCoeffs(a, b, c)
+
+
+def intersect_extent(coeffs: QuadricCoeffs, extent: float):
+    """Intersect rays with the extent-scaled bounding ellipsoids
+    (``q(t) = extent^2``). Returns (valid, t_near, t_far); ``valid`` needs a
+    real root with t_far > 0."""
+    a, b, c = coeffs
+    e2 = extent * extent
+    q_min = c - (b * b) / a
+    disc = (e2 - q_min) / a
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t_peak = -b / a
+    t_near = t_peak - sq
+    t_far = t_peak + sq
+    valid = (disc >= 0.0) & (t_far > 0.0)
+    return valid, t_near, t_far
+
+
+def pair_coeffs(o, d, centers, scales, quats) -> QuadricCoeffs:
+    """Coefficients for matched (ray, primitive) pairs; all arguments
+    broadcast over leading dims (last dim 3, or 4 for quats)."""
+    rot = quaternion.to_rotation_matrix(quats)  # [..., 3, 3]
+    rel = o - centers
+
+    def to_local(v):  # R^T v, summed in a fixed order (full f32)
+        return torch.stack(
+            [
+                rot[..., 0, i] * v[..., 0]
+                + rot[..., 1, i] * v[..., 1]
+                + rot[..., 2, i] * v[..., 2]
+                for i in range(3)
+            ],
+            dim=-1,
+        )
+
+    p_loc = to_local(rel) / scales
+    w_loc = to_local(d) / scales
+    a = torch.sum(w_loc * w_loc, dim=-1)
+    b = torch.sum(w_loc * p_loc, dim=-1)
+    c = torch.sum(p_loc * p_loc, dim=-1)
+    return QuadricCoeffs(a, b, c)

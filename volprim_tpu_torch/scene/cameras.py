@@ -1,0 +1,117 @@
+"""Camera records and primary-ray generation (volprim_tpu.scene.cameras).
+
+Mitsuba convention: the camera's local +x points image-left, +y image-up,
++z along the view direction; pixel (0, 0) is the top-left of the film.
+Jitter draws from an explicit ``torch.Generator``; it does not reproduce
+``jax.random`` bits, so parity checks render with ``jitter=False``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def fov2focal(fov_deg: float, width: int) -> float:
+    """Focal length in pixels from the x-axis FOV in degrees."""
+    return (width / 2.0) / np.tan(np.deg2rad(fov_deg) * 0.5)
+
+
+def focal2fov(focal_length: float, width: int) -> float:
+    """FOV in degrees from the focal length in pixels."""
+    return float(2.0 * np.rad2deg(np.arctan2(0.5 * width, focal_length)))
+
+
+def look_at(origin, target, up) -> np.ndarray:
+    """Mitsuba-convention look_at to_world matrix (x left, y up, z forward)."""
+    origin = np.asarray(origin, np.float64)
+    direction = np.asarray(target, np.float64) - origin
+    direction = direction / np.linalg.norm(direction)
+    left = np.cross(np.asarray(up, np.float64), direction)
+    left = left / np.linalg.norm(left)
+    new_up = np.cross(direction, left)
+    m = np.eye(4)
+    m[:3, 0] = left
+    m[:3, 1] = new_up
+    m[:3, 2] = direction
+    m[:3, 3] = origin
+    return m
+
+
+@dataclasses.dataclass
+class CameraSpecs:
+    """Pinhole camera; ``cx, cy`` are principal-point offsets in pixels (the
+    principal point is ``(W/2 - cx, H/2 - cy)``)."""
+
+    name: str
+    width: int
+    height: int
+    to_world: np.ndarray  # 4x4, Mitsuba convention
+    fov: Optional[float] = None  # degrees, x axis
+    focal_length: Optional[float] = None  # pixels
+    cx: float = 0.0
+    cy: float = 0.0
+
+    def __post_init__(self):
+        self.to_world = np.asarray(self.to_world, np.float64).reshape(4, 4)
+        if self.fov is None and self.focal_length is None:
+            raise ValueError("either fov or focal_length must be set")
+        if self.fov is None:
+            self.fov = focal2fov(self.focal_length, self.width)
+        elif self.focal_length is None:
+            self.focal_length = fov2focal(self.fov, self.width)
+
+
+def rays_from_pixels(spec: CameraSpecs, px: torch.Tensor, py: torch.Tensor):
+    """Rays through continuous film positions (px, py) -> (o, d) [..., 3]."""
+    dev = px.device
+    f = torch.tensor(spec.focal_length, dtype=torch.float32, device=dev)
+    ppx = torch.tensor(spec.width / 2.0 - spec.cx, dtype=torch.float32, device=dev)
+    ppy = torch.tensor(spec.height / 2.0 - spec.cy, dtype=torch.float32, device=dev)
+    d_local = torch.stack(
+        [-(px - ppx) / f, -(py - ppy) / f, torch.ones_like(px)], dim=-1
+    )
+    rot = torch.as_tensor(spec.to_world[:3, :3], dtype=torch.float32, device=dev)
+    origin = torch.as_tensor(spec.to_world[:3, 3], dtype=torch.float32, device=dev)
+    # d_local @ rot.T, summed in a fixed order (full f32, no matmul backend)
+    d_world = torch.stack(
+        [
+            d_local[..., 0] * rot[i, 0]
+            + d_local[..., 1] * rot[i, 1]
+            + d_local[..., 2] * rot[i, 2]
+            for i in range(3)
+        ],
+        dim=-1,
+    )
+    d_world = d_world / torch.sqrt(torch.sum(d_world * d_world, -1, keepdim=True))
+    return origin.expand(d_world.shape), d_world
+
+
+def generate_rays(
+    spec: CameraSpecs,
+    generator: Optional[torch.Generator] = None,
+    jitter: bool = True,
+    device=None,
+):
+    """One primary ray per pixel, row-major: (origins, directions) [H*W, 3].
+    With ``jitter`` the in-pixel offset is drawn from ``generator``;
+    otherwise rays pass through pixel centers."""
+    from .. import as_device
+
+    dev = as_device(device)
+    h, w = spec.height, spec.width
+    px = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w).reshape(-1)
+    py = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w).reshape(-1)
+    if jitter:
+        off = torch.rand(
+            (px.shape[0], 2), generator=generator, device=dev, dtype=torch.float32
+        )
+        px = px + off[:, 0]
+        py = py + off[:, 1]
+    else:
+        px = px + 0.5
+        py = py + 0.5
+    return rays_from_pixels(spec, px, py)

@@ -1,0 +1,110 @@
+"""Synthetic trained-3DGS-like surface scene, made from a seed with numpy.
+
+The same scene as ``bench.make_scene(n, kind="surface")`` in the JAX
+package, bit for bit: thin anisotropic splats tangent to three bumpy
+spheres plus a ground sheet on y = -1, opacities in [0.55, 0.99] and
+degree-1 SH (k = 4 coefficients per channel). numpy alone builds it, so it
+needs no download and no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ellipsoids import EllipsoidScene
+
+
+def _orient_quats(normals: np.ndarray, rng) -> np.ndarray:
+    """Quats rotating local +z onto each normal, with random spin."""
+    n = normals / np.maximum(np.linalg.norm(normals, axis=-1, keepdims=True), 1e-9)
+    z = np.array([0.0, 0.0, 1.0])
+    # quaternion from z to n: axis = z x n, w = 1 + z.n
+    axis = np.cross(np.broadcast_to(z, n.shape), n)
+    w = 1.0 + n[:, 2:3]
+    q = np.concatenate([axis, w], axis=1)
+    # degenerate (n = -z): rotate around x
+    bad = w[:, 0] < 1e-6
+    q[bad] = [1.0, 0.0, 0.0, 0.0]
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    # random spin about the normal
+    ang = rng.uniform(0, np.pi, size=(n.shape[0], 1))
+    spin = np.concatenate([np.sin(ang) * n, np.cos(ang)], axis=1)
+    # quaternion product spin * q  (x,y,z,w layout)
+    x1, y1, z1, w1 = spin.T
+    x2, y2, z2, w2 = q.T
+    out = np.stack(
+        [
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        ],
+        axis=1,
+    )
+    return out.astype(np.float32)
+
+
+def make_scene_arrays(n_prims: int, seed: int = 0) -> dict:
+    """The surface scene as numpy arrays: centers, scales, quats, opacities,
+    sh_coeffs (all float32)."""
+    rng = np.random.default_rng(seed)
+    n_ground = n_prims // 4
+    n_obj = n_prims - n_ground
+    # ground sheet on y = -1
+    gx = rng.uniform(-3, 3, size=n_ground)
+    gz = rng.uniform(-3, 3, size=n_ground)
+    gy = np.full(n_ground, -1.0) + rng.normal(size=n_ground) * 0.005
+    g_centers = np.stack([gx, gy, gz], axis=-1)
+    g_normals = np.tile([0.0, 1.0, 0.0], (n_ground, 1))
+    g_normals += rng.normal(size=(n_ground, 3)) * 0.05
+    # three blobby objects (bumpy spheres)
+    obj_centers, obj_normals = [], []
+    params = [([-1.1, -0.25, 0.3], 0.75), ([1.0, -0.1, -0.2], 0.9),
+              ([0.0, 0.35, 1.0], 0.65)]
+    per = n_obj // len(params)
+    for (c, r0) in params:
+        dirs = rng.normal(size=(per, 3))
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        # bumpy radius: low-frequency lobes
+        bump = 1.0 + 0.18 * np.sin(4.1 * dirs[:, 0] + 1.2) * np.cos(
+            3.3 * dirs[:, 1]
+        ) + 0.12 * np.sin(5.7 * dirs[:, 2])
+        obj_centers.append(np.asarray(c) + dirs * (r0 * bump[:, None]))
+        obj_normals.append(dirs)
+    rem = n_obj - per * len(params)
+    if rem:
+        obj_centers.append(obj_centers[0][:rem])
+        obj_normals.append(obj_normals[0][:rem])
+    centers = np.concatenate([g_centers] + obj_centers).astype(np.float32)
+    normals = np.concatenate([g_normals] + obj_normals).astype(np.float32)
+    quats = _orient_quats(normals, rng)
+    # Thin tangent splats sized so ~3-5 splats overlap any surface point:
+    # sigma such that density * pi * (2 sigma)^2 ~ 4 for each region.
+    sig = np.empty((n_prims,), np.float64)
+    sig[:n_ground] = np.sqrt(4.0 / (n_ground / 36.0) / np.pi) / 2.0
+    sig[n_ground:] = np.sqrt(4.0 / (n_obj / 30.0) / np.pi) / 2.0
+    tangent = sig[:, None] * np.exp(rng.normal(0.0, 0.3, size=(n_prims, 2)))
+    normal_s = tangent[:, :1] * rng.uniform(0.08, 0.25, size=(n_prims, 1))
+    scales = np.concatenate([tangent, normal_s], axis=1).astype(np.float32)
+
+    f_dc = rng.normal(size=(n_prims, 3)).astype(np.float32) * 0.3
+    f_rest = rng.normal(size=(n_prims, 9)).astype(np.float32) * 0.1
+    opac = rng.uniform(0.55, 0.99, size=(n_prims, 1)).astype(np.float32)
+    return dict(
+        centers=centers, scales=scales, quats=quats, opacities=opac,
+        sh_coeffs=np.concatenate([f_dc, f_rest], axis=1),
+    )
+
+
+def make_scene(n_prims: int, seed: int = 0, device=None) -> EllipsoidScene:
+    """The surface scene as an :class:`EllipsoidScene` on ``device``."""
+    from .. import as_device
+
+    dev = as_device(device)
+    a = make_scene_arrays(n_prims, seed)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return EllipsoidScene(
+        centers=t(a["centers"]), scales=t(a["scales"]), quats=t(a["quats"]),
+        attrs={"opacities": t(a["opacities"]), "sh_coeffs": t(a["sh_coeffs"])},
+    )
