@@ -17,7 +17,7 @@ setup(
         ]
     ),
     # the PyTorch port builds its CUDA kernels from these sources at first use
-    package_data={"volprim_tpu_torch": ["csrc/*.cu"]},
+    package_data={"volprim_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension(
             "volprim_native",

@@ -90,14 +90,50 @@ def test_plain_compositor_matches_jax_kernel(compact, sh_k):
 
 
 def test_wrapper_takes_plain_version_on_cpu_and_refuses_grad():
+    """CPU tensors take the plain versions. The wrapper refuses a gradient
+    to the ray directions d8 (the JAX custom VJP gives them zeros) and
+    differentiates pf and sh3."""
     d8, pf, sh3, n_seg_t = tcomp.synthetic_tiles(2, 32, 256, 128, 4, seed=7)
-    before = tcomp.composite_tiles3.launches
+    before = (tcomp.composite_tiles3.launches, tcomp.composite_tiles3_bwd.launches)
     got = tcomp.composite_tiles3(d8, pf, sh3, n_seg_t, seg=128, sh_k=4, compact=True)
     want = tcomp.composite_tiles3_reference(d8, pf, sh3, n_seg_t, seg=128, sh_k=4)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert tcomp.composite_tiles3.launches == before  # counts kernel launches only
-    with pytest.raises(RuntimeError, match="§B2"):
-        tcomp.composite_tiles3(
-            d8, pf.clone().requires_grad_(True), sh3, n_seg_t, seg=128, sh_k=4
-        )
+    d8_leaf = d8.clone().requires_grad_(True)
+    pf_leaf = pf.clone().requires_grad_(True)
+    l, _ = tcomp.composite_tiles3(d8_leaf, pf_leaf, sh3, n_seg_t, seg=128, sh_k=4)
+    l.sum().backward()
+    assert d8_leaf.grad is None
+    assert pf_leaf.grad is not None and pf_leaf.grad.abs().max() > 0
+    # the counts are of kernel launches only
+    assert (tcomp.composite_tiles3.launches, tcomp.composite_tiles3_bwd.launches) == before
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when a csrc header its source includes changes,
+    not only when the .cu file does."""
+    from volprim_tpu_torch.kernels import _build
+
+    for name in ("composite3_fwd.cu", "composite3_bwd.cu", "composite3_common.cuh"):
+        (tmp_path / name).write_bytes((_build.CSRC_DIR / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    assert [p.name for p in _build._sources("composite3_bwd")] == [
+        "composite3_bwd.cu", "composite3_common.cuh",
+    ]
+    before = {n: _build.library_path(n) for n in ("composite3_fwd", "composite3_bwd")}
+    header = tmp_path / "composite3_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
+
+
+@pytest.mark.parametrize("launch", ["_launch", "_launch_bwd"])
+def test_kernel_wrappers_refuse_more_than_1024_rays(launch):
+    """One thread per ray: the kernels take R <= 1024, and their wrappers
+    refuse more with a clear error before touching a library."""
+    d8, pf, sh3, n_seg_t = tcomp.synthetic_tiles(1, 1056, 256, 128, 1, seed=3)
+    extra = ()
+    if launch == "_launch_bwd":
+        extra = (torch.zeros((1, 1056, 3)), torch.zeros((1, 1056)))
+    with pytest.raises(ValueError, match="R <= 1024"):
+        getattr(tcomp, launch)(d8, pf, sh3, n_seg_t, *extra, 128, 9.0, 128, 0.01, 1, False)

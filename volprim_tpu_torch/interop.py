@@ -1,4 +1,5 @@
-"""Carry a scene across between the JAX package and the port as numpy.
+"""Carry a scene, or the training parameters, across between the JAX
+package and the port as numpy.
 
 Both packages then compute on the same parameters:
 
@@ -45,3 +46,28 @@ def to_numpy(scene: EllipsoidScene) -> dict:
         centers=n(scene.centers), scales=n(scene.scales), quats=n(scene.quats),
         attrs={k: n(v) for k, v in scene.attrs.items()}, extent=scene.extent,
     )
+
+
+TRAIN_KEYS = ("centers", "scales", "quats", "opacities", "sh_coeffs")
+
+
+def params_from_jax(arrays: dict, device=None) -> dict:
+    """The training parameter dict (any of centers, scales, quats,
+    opacities, sh_coeffs) from numpy arrays, e.g. ``{k: np.asarray(v)}`` of
+    the JAX package's parameters: float32 leaf tensors that require grad,
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    from . import as_device
+
+    dev = as_device(device)
+    unknown = set(arrays) - set(TRAIN_KEYS)
+    if unknown:
+        raise KeyError(f"not training parameters: {sorted(unknown)}")
+    return {
+        k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev).requires_grad_(True)
+        for k, v in arrays.items()
+    }
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`params_from_jax`: ``{key: numpy array}``."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

@@ -8,19 +8,20 @@ is evaluated on the small vector ``p = w + t* d``), the extent hit test,
 the log-transmittance prefix with the ``beta_kill`` cutoff, and SH emission.
 
 - :func:`pack_fused_features` builds the per-frame [16, N] column table;
-- :func:`composite_tiles3_reference` is the plain PyTorch version;
-- :func:`composite_tiles3` launches the CUDA kernel
-  (``csrc/composite3_fwd.cu``) for CUDA tensors and takes the plain version
-  for CPU tensors. It counts its launches in ``composite_tiles3.launches``.
+- :func:`composite_tiles3_reference` is the plain PyTorch version of the
+  forward, :func:`composite_tiles3_bwd_reference` that of its backward
+  (the TPU kernel's vector-Jacobian product, not autograd);
+- :func:`composite_tiles3` is differentiable in ``pf`` and ``sh3``: for CUDA
+  tensors its forward launches ``csrc/composite3_fwd.cu`` and its backward
+  ``csrc/composite3_bwd.cu``; CPU tensors take the plain versions. The
+  launches are counted in ``composite_tiles3.launches`` and
+  ``composite_tiles3_bwd.launches``.
 
 Packed column rows (the HALVED convention: rows 0-8 and 13 carry M/2, so
 the kernel compares against extent^2 / 2)::
 
     [M11, M22, M33, 2 M12, 2 M13, 2 M23, u(3) = M w, w(3) = o - c,
      opac, c0 = w^T M w, bounding radius, entry-distance key]
-
-Only the forward pass is ported; gradients come with the backward kernel
-(ROADMAP.md §B2).
 """
 
 from __future__ import annotations
@@ -138,6 +139,53 @@ def _log_kill(beta_kill: float) -> float:
     return float(np.log(np.float32(beta_kill)))
 
 
+def _ray_terms(d8: torch.Tensor, sh_k: int, sh_dtype):
+    """Per-ray terms of the plain versions in d8's dtype: (dx, dy, dz)
+    [T, R, 1] each, F6(d) and the SH basis [T, R, k], unrounded and rounded
+    to the table's dtype (the emission product takes it rounded, as the
+    kernels do)."""
+    dtype = d8.dtype
+    dx, dy, dz = (d8[:, i, :, None] for i in range(3))
+    f6 = (dx * dx, dy * dy, dz * dz, dx * dy, dx * dz, dy * dz)
+    basis = torch.cat(
+        sh.basis_columns(dx, dy, dz, sh.degree_from_coeffs(sh_k), 1.0), dim=-1
+    )
+    return (dx, dy, dz), f6, basis, basis.to(sh_dtype).to(dtype)
+
+
+def _segment_pairs(cols, d3, f6, e2h, live):
+    """Pair math of one segment, [T, R, C] each: (row, a, b, p, q_raw,
+    dens, raw, alpha0, hit). ``cols`` [T, 16, C] f32, ``live`` [T, 1, 1]."""
+    dx, dy, dz = d3
+    row = [cols[:, i:i + 1, :] for i in range(13)]  # [T, 1, C] each
+    a = f6[0] * row[0]
+    for i in range(1, 6):
+        a = a + f6[i] * row[i]
+    b = dx * row[6] + dy * row[7] + dz * row[8]
+    t_peak = -b / a
+    px = row[9] + t_peak * dx
+    py = row[10] + t_peak * dy
+    pz = row[11] + t_peak * dz
+    q_raw = (
+        px * (row[0] * px + row[3] * py + row[4] * pz)
+        + py * (row[1] * py + row[5] * pz)
+        + (pz * pz) * row[2]
+    )
+    q_min = torch.clamp(q_raw, min=0.0)
+    hit = (q_min <= e2h) & (t_peak > 0.0) & (q_min - b * t_peak > e2h) & live
+    dens = torch.exp(-q_min)
+    raw = row[12] * dens
+    alpha0 = torch.where(hit, torch.clamp(raw, max=0.9999), 0.0)
+    return row, a, b, (px, py, pz), q_raw, dens, raw, alpha0, hit
+
+
+def _capped(alpha0, count, max_depth):
+    """Hit-cap mask and the count after the segment: hits with alpha > 0
+    count, and a pair is kept while the running count is <= max_depth."""
+    cum = count + torch.cumsum((alpha0 > 0.0).to(alpha0.dtype), dim=-1)
+    return cum <= max_depth, cum[..., -1:]
+
+
 def composite_tiles3_reference(
     d8: torch.Tensor,  # [T, 8, R] f32 direction rows (+ cone rows 3-7)
     pf: torch.Tensor,  # [T, 16, S] f32 packed columns
@@ -152,58 +200,31 @@ def composite_tiles3_reference(
     """Plain PyTorch version of the forward compositor: segment by segment,
     with ``torch.cumsum`` for the hit count and the log-transmittance
     prefix. It does not compact: compaction only drops columns that no ray
-    of the tile can hit. Returns (L [T, R, 3], beta [T, R]) in f32."""
+    of the tile can hit. Returns (L [T, R, 3], beta [T, R]) in pf's dtype:
+    f32 as the kernel computes; the CPU tests pass f64 as a yardstick."""
     t, _, r = d8.shape
     s = pf.shape[2]
     if s % seg:
         raise ValueError(f"S = {s} is not a multiple of seg = {seg}")
-    f32 = torch.float32
-    dx, dy, dz = (d8[:, i, :, None].to(f32) for i in range(3))  # [T, R, 1]
-    f6 = (dx * dx, dy * dy, dz * dz, dx * dy, dx * dz, dy * dz)
-    basis = torch.cat(
-        sh.basis_columns(dx, dy, dz, sh.degree_from_coeffs(sh_k), 1.0), dim=-1
-    )
-    # the emission product runs in the table's dtype with f32 accumulation:
-    # round the basis as the kernels do
-    basis = basis.to(sh3.dtype).to(f32)  # [T, R, k]
+    dtype = pf.dtype
+    d3, f6, _, basis = _ray_terms(d8.to(dtype), sh_k, sh3.dtype)
     e2h = extent2 * 0.5
     log_kill = _log_kill(beta_kill)
     nseg = torch.clamp(n_seg_t.to(torch.int64), max=s // seg).to(d8.device)
-    log_beta = torch.zeros((t, r, 1), dtype=f32, device=d8.device)
+    log_beta = torch.zeros((t, r, 1), dtype=dtype, device=d8.device)
     count = torch.zeros_like(log_beta)
-    l_acc = torch.zeros((t, r, 3), dtype=f32, device=d8.device)
+    l_acc = torch.zeros((t, r, 3), dtype=dtype, device=d8.device)
     for si in range(int(nseg.max()) if t else 0):
         live = (si < nseg)[:, None, None]  # [T, 1, 1]
-        cols = pf[:, :, si * seg:(si + 1) * seg].to(f32)
-        row = [cols[:, i:i + 1, :] for i in range(13)]  # [T, 1, C] each
-        a = f6[0] * row[0]
-        for i in range(1, 6):
-            a = a + f6[i] * row[i]
-        b = dx * row[6] + dy * row[7] + dz * row[8]
-        t_peak = -b / a
-        px = row[9] + t_peak * dx
-        py = row[10] + t_peak * dy
-        pz = row[11] + t_peak * dz
-        q_raw = (
-            px * (row[0] * px + row[3] * py + row[4] * pz)
-            + py * (row[1] * py + row[5] * pz)
-            + (pz * pz) * row[2]
-        )
-        q_min = torch.clamp(q_raw, min=0.0)
-        hit = (
-            (q_min <= e2h) & (t_peak > 0.0) & (q_min - b * t_peak > e2h) & live
-        )
-        zero = torch.zeros((), dtype=f32, device=d8.device)
-        alpha = torch.where(
-            hit, torch.clamp(row[12] * torch.exp(-q_min), max=0.9999), zero
-        )
-        cum = count + torch.cumsum((alpha > 0.0).to(f32), dim=-1)
-        alpha = torch.where(cum <= max_depth, alpha, zero)
+        cols = pf[:, :, si * seg:(si + 1) * seg]
+        alpha0 = _segment_pairs(cols, d3, f6, e2h, live)[7]
+        depth_ok, count = _capped(alpha0, count, max_depth)
+        alpha = torch.where(depth_ok, alpha0, 0.0)
         logt = torch.log1p(-alpha)
         cs_incl = torch.cumsum(logt, dim=-1)
         lw = log_beta + (cs_incl - logt)
-        w = torch.where(lw > log_kill, torch.exp(lw) * alpha, zero)
-        shs = sh3[:, :, si * seg:(si + 1) * seg].to(f32)  # [T, 3k, C]
+        w = torch.where(lw > log_kill, torch.exp(lw) * alpha, 0.0)
+        shs = sh3[:, :, si * seg:(si + 1) * seg].to(dtype)  # [T, 3k, C]
         inc = torch.stack(
             [
                 torch.sum(
@@ -217,41 +238,167 @@ def composite_tiles3_reference(
             ],
             dim=-1,
         )
-        l_acc = l_acc + torch.where(live, inc, zero)
+        l_acc = l_acc + torch.where(live, inc, 0.0)
         log_beta = log_beta + cs_incl[..., -1:]
-        count = cum[..., -1:]
     return l_acc, torch.exp(log_beta[..., 0])
 
 
-_LIB = None
+def composite_tiles3_bwd_reference(
+    d8: torch.Tensor,
+    pf: torch.Tensor,
+    sh3: torch.Tensor,
+    n_seg_t: torch.Tensor,
+    g_l: torch.Tensor,  # [T, R, 3] cotangent of L
+    g_beta: torch.Tensor,  # [T, R] cotangent of beta
+    seg: int = 256,
+    extent2: float = 9.0,
+    max_depth: int = 128,
+    beta_kill: float = 0.01,
+    sh_k: int = 16,
+):
+    """Plain PyTorch version of the backward compositor: the vector-Jacobian
+    product of :func:`composite_tiles3_reference`, computed as the TPU
+    kernel computes it (_bwd3_subtile, composite3.py:864-1199), not by
+    autograd. A forward sweep keeps each segment's (log beta, hit count)
+    carry; the reverse sweep recomputes each segment and accumulates the
+    adjoints of the packed rows and the SH table. The SH adjoint takes the
+    f32 basis, while the emission it differentiates took the bf16-rounded
+    one, as in the TPU kernel. It does not compact: compaction changes no
+    gradient (a dropped column has alpha = 0 for every ray of its tile).
+
+    Returns (gpf [T, 16, S] in pf's dtype with rows 13-15 zero, gsh
+    [T, 3k, S] in sh3's dtype). It computes in pf's dtype: f32 as the
+    kernel does; given pf in f64 it is the yardstick that the tests and
+    chip_smoke.py hold both f32 versions to (adjoints such as g_u, whose
+    exact value is 0 at the closest approach, are rounding noise in every
+    f32 version)."""
+    t, _, r = d8.shape
+    s = pf.shape[2]
+    if s % seg:
+        raise ValueError(f"S = {s} is not a multiple of seg = {seg}")
+    dev = d8.device
+    dtype = pf.dtype
+    d3, f6, basis_f, basis = _ray_terms(d8.to(dtype), sh_k, sh3.dtype)
+    e2h = extent2 * 0.5
+    log_kill = _log_kill(beta_kill)
+    nseg = torch.clamp(n_seg_t.to(torch.int64), max=s // seg).to(dev)
+    n_walk = int(nseg.max()) if t else 0
+    g_l = g_l.to(dtype)
+    gpf = torch.zeros((t, _FEAT, s), dtype=dtype, device=dev)
+    gsh = torch.zeros((t, 3 * sh_k, s), dtype=dtype, device=dev)
+
+    def segment(si, log_beta, count):
+        live = (si < nseg)[:, None, None]
+        cols = pf[:, :, si * seg:(si + 1) * seg]
+        pairs = _segment_pairs(cols, d3, f6, e2h, live)
+        depth_ok, count_next = _capped(pairs[7], count, max_depth)
+        alpha = torch.where(depth_ok, pairs[7], 0.0)
+        logt = torch.log1p(-alpha)
+        cs_incl = torch.cumsum(logt, dim=-1)
+        return pairs, depth_ok, alpha, logt, cs_incl, count_next
+
+    # forward sweep: the carry at each segment start
+    carries = []
+    log_beta = torch.zeros((t, r, 1), dtype=dtype, device=dev)
+    count = torch.zeros_like(log_beta)
+    for si in range(n_walk):
+        carries.append((log_beta, count))
+        _, _, _, _, cs_incl, count = segment(si, log_beta, count)
+        log_beta = log_beta + cs_incl[..., -1:]
+    g_lb = g_beta.to(dtype)[..., None] * torch.exp(log_beta)  # [T, R, 1]
+
+    for si in reversed(range(n_walk)):
+        sl = slice(si * seg, (si + 1) * seg)
+        log_beta, count = carries[si]
+        pairs, depth_ok, alpha, logt, cs_incl, _ = segment(si, log_beta, count)
+        row, a, b, (px, py, pz), q_raw, dens, raw, _, hit = pairs
+        lw = log_beta + (cs_incl - logt)
+        alive = lw > log_kill
+        exp_lw = torch.exp(lw)
+        w = torch.where(alive, exp_lw * alpha, 0.0)
+        shs = sh3[:, :, sl].to(dtype)
+        g_w = torch.zeros_like(w)
+        for ch in range(3):
+            e_raw = torch.matmul(basis, shs[:, ch * sh_k:(ch + 1) * sh_k])
+            g_w = g_w + g_l[..., ch:ch + 1] * torch.clamp(e_raw, min=0.0)
+            g_e = torch.where(e_raw > 0.0, g_l[..., ch:ch + 1] * w, 0.0)
+            # [T, k, R] x [T, R, C] -> [T, k, C]
+            gsh[:, ch * sh_k:(ch + 1) * sh_k, sl] = torch.matmul(
+                basis_f.transpose(1, 2), g_e
+            )
+        g_lw = g_w * w
+        # sum of g_lw over the later columns of the segment, as the total
+        # less the inclusive prefix, both in f64 (in f32 the difference of
+        # two long sums loses the small suffixes at a segment's end)
+        g_lw64 = g_lw.to(torch.float64)
+        tot = torch.sum(g_lw64, dim=-1, keepdim=True)
+        g_logt = g_lb + (tot - torch.cumsum(g_lw64, dim=-1)).to(dtype)
+        g_alpha = torch.where(alive, g_w * exp_lw, 0.0) + g_logt * (
+            -1.0 / (1.0 - alpha)
+        )
+        g_alpha = torch.where(depth_ok & hit, g_alpha, 0.0)
+        g_raw = torch.where(raw < 0.9999, g_alpha, 0.0)
+        g_q = torch.where(q_raw > 0.0, -(g_raw * row[12] * dens), 0.0)
+        # stable q = m11 px^2 + m22 py^2 + m33 pz^2 + m12_2 px py
+        #          + m13_2 px pz + m23_2 py pz, with p = w + t* d
+        g_px = g_q * (2.0 * row[0] * px + row[3] * py + row[4] * pz)
+        g_py = g_q * (2.0 * row[1] * py + row[3] * px + row[5] * pz)
+        g_pz = g_q * (2.0 * row[2] * pz + row[4] * px + row[5] * py)
+        dx, dy, dz = d3
+        g_t = g_px * dx + g_py * dy + g_pz * dz
+        # t* = -b / a
+        g_b = -g_t / a
+        g_a = g_t * b / (a * a)
+        per_pair = [
+            g_q * px * px, g_q * py * py, g_q * pz * pz,
+            g_q * px * py, g_q * px * pz, g_q * py * pz,
+        ]
+        rows = [
+            torch.sum(per_pair[i], dim=1) + torch.sum(f6[i] * g_a, dim=1)
+            for i in range(6)
+        ]
+        rows += [torch.sum(v * g_b, dim=1) for v in d3]
+        rows += [torch.sum(v, dim=1) for v in (g_px, g_py, g_pz)]
+        rows.append(torch.sum(g_raw * dens, dim=1))
+        gpf[:, :13, sl] = torch.stack(rows, dim=1)
+        g_lb = g_lb + tot.to(dtype)
+    return gpf, gsh.to(sh3.dtype)
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+_LIBS: dict = {}
+# tensor pointers each C entry point takes before its scalar arguments
+_N_POINTERS = {"composite3_fwd": 6, "composite3_bwd": 10}
+
+
+def _lib(name: str = "composite3_fwd"):
+    """The ctypes library of ``csrc/<name>.cu`` (built at first use)."""
+    lib = _LIBS.get(name)
+    if lib is None:
         from . import _build
 
-        lib = _build.load("composite3_fwd")
+        lib = _build.load(name)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.composite3_fwd.argtypes = [
-            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, ci, cf, ci, vp,
-        ]
-        lib.composite3_fwd.restype = ci
-        lib.composite3_error_string.argtypes = [ci]
-        lib.composite3_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * _N_POINTERS[name] + [ci, ci, ci, ci, ci, cf, ci, cf, ci, vp]
+        fn.restype = ci
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
+        lib.error_string = err
+        _LIBS[name] = lib
+    return lib
 
 
-def _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k,
-            compact):
+def _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k, extra=()):
+    """Device, dtype, shape and contiguity checks of the kernels' inputs."""
     dev = d8.device
     t, rows, r = d8.shape
     s = pf.shape[-1]
-    for name, x, dtype in (
+    named = (
         ("d8", d8, torch.float32), ("pf", pf, torch.float32),
         ("sh3", sh3, torch.bfloat16), ("n_seg_t", n_seg_t, torch.int32),
-    ):
+    ) + tuple(extra)
+    for name, x, dtype in named:
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, d8 on {dev}")
         if x.dtype != dtype:
@@ -269,7 +416,21 @@ def _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k,
         )
     if tuple(n_seg_t.shape) != (t,) or seg < 1 or s % seg:
         raise ValueError(f"n_seg_t must be [{t}] and S = {s} a multiple of seg = {seg}")
-    lib = _lib()
+    return t, r, s
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        msg = lib.error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+def _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k,
+            compact):
+    """Launch csrc/composite3_fwd.cu: (L [T, R, 3], beta [T, R])."""
+    t, r, s = _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k)
+    dev = d8.device
+    lib = _lib("composite3_fwd")
     l_out = torch.empty((t, r, 3), dtype=torch.float32, device=dev)
     beta = torch.empty((t, r), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -279,11 +440,94 @@ def _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k,
             extent2 * 0.5, int(max_depth), _log_kill(beta_kill), int(compact),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        msg = lib.composite3_error_string(err).decode()
-        raise RuntimeError(f"composite3_fwd launch failed: {msg} ({err})")
+    _raise_on(lib, err, "composite3_fwd")
     composite_tiles3.launches += 1
     return l_out, beta
+
+
+def _launch_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth,
+                beta_kill, sh_k, compact):
+    """Launch csrc/composite3_bwd.cu: (gpf [T, 16, S] f32, gsh [T, 3k, S]
+    bf16)."""
+    f32 = torch.float32
+    t, r, s = _check_inputs(
+        d8, pf, sh3, n_seg_t, seg, sh_k,
+        (("g_l", g_l, f32), ("g_beta", g_beta, f32)),
+    )
+    if tuple(g_l.shape) != (t, r, 3) or tuple(g_beta.shape) != (t, r):
+        raise ValueError(
+            f"g_l {tuple(g_l.shape)} / g_beta {tuple(g_beta.shape)} do not "
+            f"match [{t}, {r}, 3] / [{t}, {r}]"
+        )
+    dev = d8.device
+    lib = _lib("composite3_bwd")
+    gpf = torch.empty((t, _FEAT, s), dtype=f32, device=dev)
+    gsh = torch.empty((t, 3 * sh_k, s), dtype=torch.bfloat16, device=dev)
+    # per-segment (log beta, hit count) carries of every ray
+    lb_scr = torch.empty((t, s // seg, r), dtype=f32, device=dev)
+    cnt_scr = torch.empty((t, s // seg, r), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.composite3_bwd(
+            d8.data_ptr(), pf.data_ptr(), sh3.data_ptr(), n_seg_t.data_ptr(),
+            g_l.data_ptr(), g_beta.data_ptr(), lb_scr.data_ptr(),
+            cnt_scr.data_ptr(), gpf.data_ptr(), gsh.data_ptr(), t, r, s, seg,
+            sh_k, extent2 * 0.5, int(max_depth), _log_kill(beta_kill),
+            int(compact), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, err, "composite3_bwd")
+    composite_tiles3_bwd.launches += 1
+    return gpf, gsh
+
+
+def composite_tiles3_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, seg=256,
+                         extent2=9.0, max_depth=128, beta_kill=0.01, sh_k=16,
+                         compact=False):
+    """Backward compositor: (gpf [T, 16, S] f32, gsh [T, 3k, S] in sh3's
+    dtype). CUDA tensors launch the hand-written kernel
+    (csrc/composite3_bwd.cu) and raise if it does not launch; CPU tensors
+    take :func:`composite_tiles3_bwd_reference`."""
+    if d8.device.type == "cpu":
+        return composite_tiles3_bwd_reference(
+            d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth,
+            beta_kill, sh_k,
+        )
+    if d8.device.type != "cuda":
+        raise ValueError(f"composite_tiles3_bwd runs on CPU or CUDA, not {d8.device}")
+    return _launch_bwd(
+        d8, pf, sh3, n_seg_t, g_l.contiguous(), g_beta.contiguous(), seg,
+        extent2, max_depth, beta_kill, sh_k, compact,
+    )
+
+
+composite_tiles3_bwd.launches = 0
+
+
+class _Composite3(torch.autograd.Function):
+    """The compositor with the backward of composite3._bwd3_rule: gradients
+    reach pf and sh3; d8 and n_seg_t get none (JAX gives zeros and
+    float0). An unused beta output is a zero cotangent."""
+
+    @staticmethod
+    def forward(ctx, d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill,
+                sh_k, compact):
+        args = (seg, extent2, max_depth, beta_kill, sh_k)
+        if d8.device.type == "cpu":
+            out = composite_tiles3_reference(d8, pf, sh3, n_seg_t, *args)
+        elif d8.device.type == "cuda":
+            out = _launch(d8, pf, sh3, n_seg_t, *args, compact)
+        else:
+            raise ValueError(f"composite_tiles3 runs on CPU or CUDA, not {d8.device}")
+        ctx.save_for_backward(d8, pf, sh3, n_seg_t)
+        ctx.args = args + (compact,)
+        ctx.set_materialize_grads(True)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_l, g_beta):
+        d8, pf, sh3, n_seg_t = ctx.saved_tensors
+        gpf, gsh = composite_tiles3_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, *ctx.args)
+        need = ctx.needs_input_grad
+        return (None, gpf if need[1] else None, gsh if need[2] else None) + (None,) * 7
 
 
 def composite_tiles3(
@@ -298,25 +542,16 @@ def composite_tiles3(
     sh_k: int = 16,
     compact: bool = False,
 ):
-    """Fused forward compositor: (L [T, R, 3], beta [T, R]).
+    """Fused compositor: (L [T, R, 3], beta [T, R]), differentiable in
+    ``pf`` and ``sh3``.
 
-    CUDA tensors launch the hand-written kernel (csrc/composite3_fwd.cu;
-    with ``compact`` it first drops the columns whose bounding sphere
-    misses the tile's ray cone) and raise if it does not launch. CPU
-    tensors take :func:`composite_tiles3_reference`. Inputs that require
-    grad are refused: the backward kernel is ROADMAP.md §B2."""
-    if any(x.requires_grad for x in (d8, pf, sh3)):
-        raise RuntimeError(
-            "composite_tiles3 is forward-only: its backward kernel (the "
-            "_bwd3_kernel port) is ROADMAP.md §B2"
-        )
-    if d8.device.type == "cpu":
-        return composite_tiles3_reference(
-            d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k
-        )
-    if d8.device.type != "cuda":
-        raise ValueError(f"composite_tiles3 runs on CPU or CUDA, not {d8.device}")
-    return _launch(
+    CUDA tensors launch the hand-written kernels (csrc/composite3_fwd.cu,
+    and csrc/composite3_bwd.cu in the backward; with ``compact`` both first
+    drop the columns whose bounding sphere misses the tile's ray cone) and
+    raise if one does not launch. CPU tensors take
+    :func:`composite_tiles3_reference` and
+    :func:`composite_tiles3_bwd_reference`."""
+    return _Composite3.apply(
         d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k, compact
     )
 

@@ -9,8 +9,17 @@ Same light transport as :mod:`.rf`, organised like a rasterizer:
    ``coarse_group`` tiles, then clusters per tile; sort tiles into
    need-ordered budget classes; gather each tile's clusters into packed
    column blocks; composite them with the fused compositor
-   (kernels/composite3.py, a CUDA kernel on the card), ``fold`` samples per
+   (kernels/composite3.py, CUDA kernels on the card), ``fold`` samples per
    launch; sRGB per sample.
+
+Both are differentiable: with primitive parameters that require grad,
+``build_state`` -> ``render_state`` under autograd gives gradients of
+centers, scales, quats, opacities and sh_coeffs through the padding, the
+Morton permutation, the SH fold and its bf16 cast, the per-frame pack, the
+cluster gathers and the neutral-row masking, the compositor's backward
+kernel, sRGB and the sample sum. The cull (Morton codes, cluster and
+supercluster spheres, cone keys, shortlists) selects integer ids and is
+computed on detached tensors.
 
 Ported: ``backend='fused'`` with the two-level cull, ``budget_classes``,
 ``kernel_compact`` and ``cluster_sort``. The TPU layout knobs
@@ -117,10 +126,13 @@ def build_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledState:
     """Morton-sort, cluster and pack the scene for tiled rendering."""
     _check_config(cfg)
     cs, sg = cfg.cluster_size, cfg.super_group
-    index = clusters.build_clusters(
-        pad_primitives(primitives, cs), cs, num_real=primitives.num_prims
-    )
-    work = index.prims
+    padded = pad_primitives(primitives, cs)
+    # the cull geometry (Morton order, cluster and supercluster spheres)
+    # only selects integer ids: it carries no gradient, in JAX either, and
+    # is built detached so that autograd holds none of it
+    with torch.no_grad():
+        index = clusters.build_clusters(padded, cs, num_real=primitives.num_prims)
+    work = padded.select(index.perm)  # the Morton order, under autograd
     n = work.num_prims
     ncl = n // cs
     sh_coeffs = work.sh_coeffs_3d()  # [N, k, 3]
