@@ -28,18 +28,40 @@ print one line:
    forward and the backward kernel against their plain versions on that
    step's own inputs;
 8. train_loop: eight steps of the refine protocol through train.train_step
-   (perturbed opacities and SH against a 4-spp render of the scene).
+   (perturbed opacities and SH against a 4-spp render of the scene);
+
+and the path tracer's forward render (models.render -> prb.radiance with
+PRBConfig(walk_backend="pallas"), the 4096-primitive plume under the
+procedural sky, examples/render_volume.py's camera at 512x512, 1 spp),
+whose free-flight walk is the hand-written kernel csrc/ffwalk.cu (built in
+phase 2 with the compositors):
+
+9. ffwalk_kernel: the walk's wrapper ffwalk.walk (which launches the
+   kernel) against its plain version on the tables the port collects for
+   65,536 plume camera rays, in six variants (ffwalk.WALK_VARIANTS: K' / k
+   / windows 256/32/4, 128/8/4, 64/64/1, surface caps on half the rays, a
+   finite budget, the solver disabled);
+10. prb_frame: one counted frame whose walk launches are recorded and then
+   replayed through ffwalk.walk, each held against the plain version on its
+   own inputs (bounce 0's launches and the largest later one are printed),
+   then a warm-up and three timed frames;
+11. prb_absorbing: the plume with albedo 0 under a unit sky, where each
+   ray's radiance is 1 with probability T: the mean radiance of the
+   512x512 unjittered rays against the mean of prb.transmittance, within 4
+   standard errors.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero. There is no CPU mode: without a CUDA card it exits with an
-error. ``--out DIR`` also writes the details and a torch.profiler table of
-two frames there.
+error. ``--out DIR`` also writes the details and torch.profiler tables of
+two tiled frames, two train steps and two path-traced frames there.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import inspect
 import json
 import math
 import os
@@ -110,6 +132,28 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 OPS_PAIR = 40
 
 
+# The free-flight walk's bound counts f32 operations per interval the
+# selection scans (its finite and open tests and its rank) and per erf term:
+# CUDA's erff counted as 20 operations (a rational polynomial and a branch),
+# plus 8 for its argument, the clamp, the difference, the product, the max
+# and the sum. A walked window scans its row up to the (k+1)-th open
+# interval (or the first padding entry) and takes 2 erf terms per selected
+# interval; the window where a ray is found adds bisect_iters + 1
+# (+ 1 + solver_iters with the solver) terms per selected interval.
+OPS_SELECT = 3
+OPS_ERFF = 20
+OPS_ERF_TERM = OPS_ERFF + 8
+# The walk kernel against its plain version: rays whose found / resolved /
+# bdead / capres differ, plus rays found by both whose t_samp differs by
+# more than WALK_ATOL + WALK_RTOL |t| (the tolerance of
+# tests/test_ffwalk.py:63), may be at most WALK_DIFF_SHARE of the active
+# rays (erff against torch.erf and another summation order move a window's
+# depth by a few ulps, which decides a ray only at a rounding boundary).
+WALK_ATOL, WALK_RTOL, WALK_DIFF_SHARE = 5e-3, 1e-3, 1e-3
+# the path tracer's cell: the plume, and render_volume.py's film
+PRB_PRIMS, PRB_WIDTH = 4096, 512
+
+
 def ops_hit_fwd(k):
     return 17 + 6 * k
 
@@ -148,6 +192,26 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(cuda_times(fn, reps, warmup)))
 
 
+def launch_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median device time of one short launch fn() in ms: a ~1 ms
+    torch.cuda._sleep keeps the queue busy while the host prepares the
+    launch, so the events time the kernel from its start on the device and
+    not the wrapper's host work before it."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def compare(got, want, n_rays: int) -> dict:
     """Max abs / rel difference and the rays outside the tolerance."""
     got, want = got.float(), want.float()
@@ -180,25 +244,52 @@ def column_keep(d8, pf):
     return keep
 
 
-def device_profile(fn, out_dir: str, name: str, n: int = 2) -> float:
+def device_profile(fn, out_dir: str, name: str, n: int = 2, stages: dict = None):
     """Device busy ms per call of fn(i) over n calls (torch.profiler's
     device-side rows: kernels and copies; the CPU-op rows repeat them),
-    with the table written to out_dir/name."""
-    from torch.profiler import ProfilerActivity, profile
+    with the table written to out_dir/name. ``stages`` maps a module to
+    names of its functions that are wrapped in torch.profiler ranges of the
+    same name while profiling; then the device ms per call spent inside
+    each range (ranges nest) is returned beside the busy ms."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    def ranged(label, fn_):
+        def wrapper(*a, **k):
+            with record_function(label):
+                return fn_(*a, **k)
+        return wrapper
+
+    saved = [(mod, n_, getattr(mod, n_)) for mod, names in (stages or {}).items()
+             for n_ in names]
     os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            fn(i)
-        torch.cuda.synchronize()
+    try:
+        for mod, n_, fn_ in saved:
+            setattr(mod, n_, ranged(n_, fn_))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+    finally:
+        for mod, n_, fn_ in saved:
+            setattr(mod, n_, fn_)
     events = prof.key_averages()
+    labels = {n_ for _, n_, _ in saved}
+    # the ranges also appear on the device as annotation spans, which
+    # cover idle time: they are neither busy time nor a stage's time
     busy_us = sum(
         e.self_device_time_total for e in events
-        if e.device_type == torch.autograd.DeviceType.CUDA
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in labels
     )
     with open(os.path.join(out_dir, name), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
-    return busy_us / 1e3 / n
+    if not stages:
+        return busy_us / 1e3 / n
+    # a range's host-side event sums the kernels launched inside it
+    split = dict.fromkeys(sorted(labels), 0.0)
+    for e in prof.events():
+        if e.name in labels and e.device_type == torch.autograd.DeviceType.CPU:
+            split[e.name] += e.device_time_total / 1e3 / n
+    return busy_us / 1e3 / n, split
 
 
 @torch.no_grad()
@@ -323,6 +414,52 @@ def check_bwd(composite3, args, kw, compact, reps=10):
     return cmp_, ms, plain_ms
 
 
+def walk_kwargs(kw) -> dict:
+    """All of ffwalk._launch's keyword arguments, defaults filled in."""
+    return {"bisect_iters": 22, "solver_iters": 4, "solver_disabled": False, **kw}
+
+
+def walk_work(args, kw, work) -> dict:
+    """Bytes and f32 operations one walk on ``args`` must do, and the least
+    time of it on this card. ``work`` is walk_reference's count of what
+    these inputs make the walk do. Bytes: entry and exit of the longest
+    prefix of each row that a window scans, cp, alpha and beta of the
+    intervals a window selects, and four [R] floats plus the active byte
+    read once; four flag bytes and t_samp written once."""
+    r = args[0].shape[0]
+    kw = walk_kwargs(kw)
+    nbytes = (work.get("scanned_max", 0) * 2 * 4 + work.get("selected_union", 0) * 3 * 4
+              + r * (4 * 4 + 1) + r * (4 + 4))
+    per_found = kw["bisect_iters"] + 1 + (0 if kw["solver_disabled"] else 1 + kw["solver_iters"])
+    ops = (work.get("scanned", 0) * OPS_SELECT
+           + (2 * work.get("selected", 0) + per_found * work.get("selected_found", 0))
+           * OPS_ERF_TERM)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", work=work)
+
+
+def compare_walk(got, want, n_active: int) -> dict:
+    """The wrapper ffwalk.walk's (found, resolved, bdead, capres, t_samp)
+    against walk_reference's on the same inputs (see WALK_DIFF_SHARE), the
+    reference's t_samp taken to +inf where not found, as the wrapper takes
+    it: a ray also differs where one t_samp is inf and the other is not."""
+    want_t = torch.where(want[0], want[4], torch.inf)
+    differ = torch.isinf(got[4]) != torch.isinf(want_t)
+    for g, w in zip(got[:4], want[:4]):
+        differ |= g != w
+    both = got[0] & want[0]
+    dt = (got[4] - want_t).abs()[both]
+    outside = dt > WALK_ATOL + WALK_RTOL * want_t[both].abs()
+    n_diff, n_out = int(differ.sum()), int(outside.sum())
+    return dict(
+        active_rays=n_active, found=int(got[0].sum()), decisions_differ=n_diff,
+        t_outside_tol=n_out, max_abs_dt=float(dt.max()) if dt.numel() else 0.0,
+        max_abs_dt_outside=float(dt[outside].max()) if n_out else 0.0,
+        ok=n_diff + n_out <= WALK_DIFF_SHARE * n_active,
+    )
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="directory for details and a profiler table")
@@ -331,8 +468,9 @@ def main() -> None:
         fail("no CUDA card (torch.cuda.is_available() is False); the port's "
              "kernels have no CPU mode here")
 
-    from volprim_tpu_torch.kernels import _build, composite3
-    from volprim_tpu_torch.models import rf, rf_tiled
+    from volprim_tpu_torch.kernels import _build, composite3, ffwalk
+    from volprim_tpu_torch.models import prb, render, rf, rf_tiled
+    from volprim_tpu_torch.ops import envmap
     from volprim_tpu_torch.scene import CameraSpecs, generate_rays, look_at, synthetic
 
     dev = torch.device("cuda", 0)
@@ -357,10 +495,11 @@ def main() -> None:
 
     # ---- 2. build: one nvcc per source, all started together ------------
     t0 = time.perf_counter()
-    names = ("composite3_fwd", "composite3_bwd")
+    names = ("composite3_fwd", "composite3_bwd", "ffwalk")
     _build.build(*names)
-    for name in names:
+    for name in names[:2]:
         composite3._lib(name)
+    ffwalk._lib()
     seconds = round(time.perf_counter() - t0, 2)
     for name in names:
         info = _build.build_info.get(name, {})
@@ -654,6 +793,204 @@ def main() -> None:
     if not (float(o.min()) >= lo and float(o.max()) <= hi):
         fail("the opacities left their bounds")
     details["train_loop_losses"] = losses
+    del lparams, opt, ref, base
+
+    # ---- 9. the free-flight walk kernel vs its plain version --------------
+    medium = synthetic.make_medium(PRB_PRIMS, seed=0, device=dev)
+    pcam = synthetic.medium_camera(PRB_WIDTH, PRB_WIDTH)
+    po, pd = generate_rays(pcam, jitter=False, device=dev)
+    q = PRB_WIDTH // 4
+    center = (slice(q, 3 * q), slice(q, 3 * q))  # the central 256 x 256 = 65,536 rays
+    tables = ffwalk.synthetic_tables(
+        medium, po.reshape(PRB_WIDTH, PRB_WIDTH, 3)[center].reshape(-1, 3).contiguous(),
+        pd.reshape(PRB_WIDTH, PRB_WIDTH, 3)[center].reshape(-1, 3).contiguous(), 256, seed=9,
+    )
+    walk_checks = []
+    for name in ffwalk.WALK_VARIANTS:
+        tb, kw = ffwalk.walk_variant(tables, name, seed=9)
+        wargs, wkw = list(tb.values()), walk_kwargs(kw)
+        n0 = ffwalk.walk.launches
+        got = ffwalk.walk(*wargs, **wkw)
+        want = ffwalk.walk_reference(*wargs, **wkw)
+        torch.cuda.synchronize()
+        if ffwalk.walk.launches != n0 + 1:
+            fail(f"ffwalk.walk did not launch its kernel once in variant {name}")
+        cmp_ = compare_walk(got, want, int(tb["active"].sum()))
+        del got, want
+        ms = launch_ms(lambda: ffwalk._launch(*wargs, **wkw), 10)
+        plain_ms = cuda_ms(lambda: ffwalk.walk_reference(*wargs, **wkw), 3, warmup=1)
+        wk = {}
+        ffwalk.walk_reference(*wargs, **wkw, work=wk)
+        row = dict(variant=name, kp=int(tb["entry"].shape[1]), **kw, **cmp_, ms=ms,
+                   plain_ms=plain_ms, **walk_work(wargs, kw, wk))
+        walk_checks.append(row)
+        phase("ffwalk_kernel", **row)
+        if not cmp_["ok"]:
+            fail(f"the walk kernel disagrees with its plain version in variant {name}")
+    details["ffwalk_checks"] = walk_checks
+    del tables, tb, wargs
+
+    # ---- 10. the path tracer's frame through the walk kernel -------------
+    sky = envmap.procedural_sky(device=dev)
+    pcfg = prb.PRBConfig(max_depth=-1, walk_backend="pallas")
+
+    def prb_frame(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return render(medium, pcam, prb.radiance, pcfg, sky, 1, gen)
+
+    # The counted frame. Hooks record the bounce of each free flight (prb.
+    # _bounce's argument i), its live, found and dead rays (and at bounce 0
+    # its xi and dead mask, for phase 11), and the inputs of each walk
+    # launch. Afterwards every launch is replayed through ffwalk.walk against
+    # the plain version on its own inputs, both timed.
+    hooked = dict(_launch=ffwalk._launch, _bounce=prb._bounce, free_flight=prb.free_flight)
+    bounce_sig = inspect.signature(prb._bounce)
+    bounce_now = {"i": 0}
+    ff_stats, bounce0, recorded_walks = {}, [], []
+
+    def bounce_hook(*a, **k):
+        bounce_now["i"] = bounce_sig.bind(*a, **k).arguments["i"]
+        return hooked["_bounce"](*a, **k)
+
+    def ff_hook(prims, o, d, xi, cfg, active, *a, **k):
+        out = hooked["free_flight"](prims, o, d, xi, cfg, active, *a, **k)
+        st = ff_stats.setdefault(bounce_now["i"], dict(live=0, found=0, dead=0))
+        st["live"] += int(active.sum())
+        st["found"] += int(out[0].sum())
+        st["dead"] += int(out[1].sum())
+        if bounce_now["i"] == 0:
+            bounce0.append((xi, out[1]))
+        return out
+
+    def launch_hook(*a, **k):
+        recorded_walks.append((bounce_now["i"], a, k))
+        return hooked["_launch"](*a, **k)
+
+    ffwalk._launch, prb._bounce, prb.free_flight = launch_hook, bounce_hook, ff_hook
+    ffwalk.walk.launches = 0
+    try:
+        t0 = time.perf_counter()
+        pimg = prb_frame(1)
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+    finally:
+        prb_launches = ffwalk.walk.launches
+        ffwalk._launch, prb._bounce, prb.free_flight = hooked.values()
+    # a bounce with found or dead rays had needy rays: the walk decided them
+    needy_bounces = {b for b, st in ff_stats.items() if st["found"] + st["dead"]}
+    walk_bounces = {b for b, _, _ in recorded_walks}
+    if prb_launches == 0 or prb_launches != len(recorded_walks) or needy_bounces - walk_bounces:
+        fail(f"ffwalk launched {prb_launches} times ({len(recorded_walks)} recorded) on "
+             f"bounces {sorted(walk_bounces)} of those with needy rays {sorted(needy_bounces)}")
+    if tuple(pimg.shape) != (PRB_WIDTH, PRB_WIDTH, 3) or not bool(torch.isfinite(pimg).all()):
+        fail("the path-traced frame is not a finite [512, 512, 3] image")
+    launch_rows = []
+    for bounce, a, k in recorded_walks:
+        n0 = ffwalk.walk.launches
+        got = ffwalk.walk(*a, **k)
+        want = ffwalk.walk_reference(*a, **k)
+        torch.cuda.synchronize()
+        if ffwalk.walk.launches != n0 + 1:
+            fail("ffwalk.walk did not launch its kernel once on a replayed launch")
+        cmp_ = compare_walk(got, want, int(a[8].sum()))  # a[8]: active
+        wk = {}
+        ffwalk.walk_reference(*a, **k, work=wk)
+        launch_rows.append(dict(
+            bounce=bounce, rays=int(a[0].shape[0]), kp=int(a[0].shape[1]), **cmp_,
+            ms=launch_ms(lambda: ffwalk._launch(*a, **k), 5),
+            plain_ms=cuda_ms(lambda: ffwalk.walk_reference(*a, **k), 2, warmup=1),
+            **walk_work(a, k, wk),
+        ))
+    del recorded_walks, got, want
+    walk_ms = sum(r_["ms"] for r_ in launch_rows)
+    walk_plain_ms = sum(r_["plain_ms"] for r_ in launch_rows)
+    walk_bound_ms = sum(r_["bound_ms"] for r_ in launch_rows)
+    bound_bytes = sum(r_["bound_ms"] for r_ in launch_rows if r_["bound_by"] == "bytes")
+    later = [r_ for r_ in launch_rows if r_["bounce"] > 0]
+    shown = [r_ for r_ in launch_rows if r_["bounce"] == 0]
+    if later:
+        shown.append(max(later, key=lambda r_: r_["rays"]))
+    for row in shown:
+        phase("ffwalk_on_frame_inputs", **{k_: v for k_, v in row.items() if k_ != "work"})
+    bad = [r_ for r_ in launch_rows if not r_["ok"]]
+    if bad:
+        fail(f"the walk kernel disagrees with its plain version on {len(bad)} of the frame's "
+             f"{len(launch_rows)} launches")
+    walked = sum(st["live"] for st in ff_stats.values())
+    dead = sum(st["dead"] for st in ff_stats.values())
+    torch.cuda.reset_peak_memory_stats()
+    seeds = iter(range(500, 600))
+    prb_times = cuda_times(lambda: prb_frame(next(seeds)), 3, warmup=1)
+    prb_ms = float(np.median(prb_times))
+    prb_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    phase(
+        "prb_frame", launches=prb_launches, frame_ms=prb_ms, frame_ms_min=prb_times[0],
+        frame_ms_max=prb_times[-1], mrays_per_s=PRB_WIDTH * PRB_WIDTH / (prb_ms / 1e3) / 1e6,
+        bounces=len(ff_stats), rays_walked=walked, dead_share=dead / max(walked, 1),
+        dead_share_bounce0=ff_stats[0]["dead"] / max(ff_stats[0]["live"], 1),
+        mean_radiance=[float(x) for x in pimg.reshape(-1, 3).mean(0)],
+        peak_mem_gib=prb_peak_gib, counted_frame_s=round(counted_s, 2),
+        walk_ms_per_frame=walk_ms, walk_plain_ms_per_frame=walk_plain_ms,
+        walk_bound_ms_per_frame=walk_bound_ms,
+        walk_rays_per_frame=sum(r_["rays"] for r_ in launch_rows),
+        walk_launches_compared=len(launch_rows),
+        walk_rays_differ=sum(r_["decisions_differ"] + r_["t_outside_tol"] for r_ in launch_rows),
+    )
+    details["prb_frame"] = dict(times=prb_times, launches=launch_rows,
+                                bounce_stats={str(b): v for b, v in ff_stats.items()})
+
+    # ---- 11. an analytic check of the whole path: absorbing plume --------
+    dark = dataclasses.replace(medium, attrs={
+        **medium.attrs, "albedo": torch.zeros_like(medium.attrs["albedo"])})
+    unit = envmap.ConstantEmitter(radiance=torch.ones(3, device=dev))
+    ff_stats.clear()
+    bounce0.clear()
+    prb._bounce, prb.free_flight = bounce_hook, ff_hook
+    try:
+        lum = prb.radiance(dark, unit, po, pd, pcfg, torch.Generator(device=dev).manual_seed(11))
+    finally:
+        prb._bounce, prb.free_flight = hooked["_bounce"], hooked["free_flight"]
+    trans = prb.transmittance(medium, po, pd, pcfg)
+    n_rays = po.shape[0]
+    # bounce 0 sees every camera ray, chunk after chunk, in order
+    xi0 = torch.cat([x for x, _ in bounce0])
+    dead0 = torch.cat([m for _, m in bounce0])
+    if xi0.shape[0] != n_rays:
+        fail(f"absorbing plume: bounce 0 saw {xi0.shape[0]} of {n_rays} rays")
+    # With albedo 0 a path ends at its first free flight, and L is 1 exactly
+    # when that flight escapes. A ray escapes in closed form when its depth
+    # chi = -log(xi) exceeds the whole ray's (xi <= T); only the others go to
+    # the walk, so the exact L of every budget-dead ray is 0 as well, and
+    # the walk can move L only by letting a crossing ray (xi > T) escape.
+    # Hence E[mean L] = mean T up to such rays (counted), and the limit is
+    # 4 standard errors of mean L alone.
+    l0 = lum[:, 0]
+    crossing = xi0 > trans
+    mean_l, mean_t = float(l0.mean()), float(trans.mean())
+    limit = 4.0 * math.sqrt(float(torch.sum(trans * (1.0 - trans)))) / n_rays
+    dead_lit = int((dead0 & (l0 != 0)).sum())
+    phase("prb_absorbing", rays=n_rays, mean_radiance=mean_l, mean_transmittance=mean_t,
+          diff=abs(mean_l - mean_t), limit=limit,
+          dead_share=float(dead0.float().mean()), dead_rays_with_light=dead_lit,
+          crossing_rays_escaped=int((crossing & (l0 == 1)).sum()),
+          escaping_rays_dark=int((~crossing & (l0 == 0)).sum()),
+          values_in_0_1=bool(((lum == 0) | (lum == 1)).all()))
+    if not bool(torch.isfinite(lum).all()) or not abs(mean_l - mean_t) <= limit or dead_lit:
+        fail(f"absorbing plume: mean L {mean_l} vs mean T {mean_t}, limit {limit}, "
+             f"{dead_lit} budget-dead rays with light")
+
+    if args.out:
+        busy_ms, split = device_profile(
+            lambda i: prb_frame(700 + i), args.out, "chip_smoke_prb_profile.txt",
+            stages={prb: ("optical_depth", "_gather_intervals", "_run_windows_pallas",
+                          "_f_exact_at"),
+                    ffwalk: ("_launch",)},
+        )
+        details["prb_device_busy_ms_per_frame"] = busy_ms
+        details["prb_device_idle_share"] = 1.0 - busy_ms / prb_ms
+        details["prb_device_ms_per_frame_by_stage"] = split
+        phase("prb_profile", device_busy_ms_per_frame=busy_ms,
+              device_idle_share=details["prb_device_idle_share"], device_ms_by_stage=split)
 
     if args.out:
         busy_ms = device_profile(lambda i: frame(seed=300 + i), args.out,
@@ -701,6 +1038,18 @@ def main() -> None:
         "plain_ms": bwd_plain_ms,
         "bound_ms": train_work["bwd_bound_ms"],
         "bound_by": train_work["bwd_bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ffwalk",
+        "route": "cuda",
+        "source": "volprim_tpu_torch/csrc/ffwalk.cu",
+        "replaces": "volprim_tpu/pallas_kernels/ffwalk.py:81",
+        "launches": prb_launches,
+        "max_abs_err": max(r_["max_abs_dt"] for r_ in walk_checks + launch_rows),
+        "ms": walk_ms,
+        "plain_ms": walk_plain_ms,
+        "bound_ms": walk_bound_ms,
+        "bound_by": "bytes" if bound_bytes >= walk_bound_ms / 2 else "operations",
         "library_ms": None,
     }]}), flush=True)
     print(smi_line, flush=True)

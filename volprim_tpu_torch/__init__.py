@@ -19,13 +19,21 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def default_device() -> torch.device:
-    """The first CUDA device when one is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA device. Without a card this raises: the port runs on
+    the CPU only when the caller asks for it (``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port's "
+            "plain PyTorch versions on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def as_device(device=None) -> torch.device:
     """Normalise a device argument; ``None`` means :func:`default_device`."""
     return default_device() if device is None else torch.device(device)
 
+
+from . import accel, kernels, models, ops, optim, scene  # noqa: E402
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels (sources in ../csrc), each with its plain
 PyTorch version and a launch counter on its wrapper."""
 
-from . import composite3
+from . import composite3, ffwalk
 
-__all__ = ["composite3"]
+__all__ = ["composite3", "ffwalk"]

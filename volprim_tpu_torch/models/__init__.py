@@ -1,5 +1,8 @@
-"""Integrators: the exact-order rf oracle and the tiled fused renderer."""
+"""Integrators: the exact-order rf oracle, the tiled fused renderer and the
+volumetric path tracer (prb), with the wavefront render loop."""
 
-from . import base, rf, rf_tiled
+from . import base, prb, rf, rf_tiled
+from .base import Film, render
+from .prb import PRBConfig
 
-__all__ = ["base", "rf", "rf_tiled"]
+__all__ = ["Film", "PRBConfig", "base", "prb", "render", "rf", "rf_tiled"]

@@ -4,7 +4,7 @@ Along a ray ``o + t d`` a primitive (rotation R, scales s, center c) has the
 Mahalanobis quadratic ``q(t) = a t^2 + 2 b t + c0`` with
 ``M = R diag(s)^-2 R^T``, ``a = d^T M d``, ``b = d^T M (o - c)``,
 ``c0 = (o - c)^T M (o - c)``. Only what the exact integrator (models/rf.py)
-calls is ported here.
+and the path tracer (models/prb.py) call is ported here.
 """
 
 from __future__ import annotations
@@ -88,4 +88,28 @@ def pair_coeffs(o, d, centers, scales, quats) -> QuadricCoeffs:
     a = torch.sum(w_loc * w_loc, dim=-1)
     b = torch.sum(w_loc * p_loc, dim=-1)
     c = torch.sum(p_loc * p_loc, dim=-1)
+    return QuadricCoeffs(a, b, c)
+
+
+def pair_coeffs_gathered(o, d, centers, scales, quats, ids) -> QuadricCoeffs:
+    """Coefficients for per-ray primitive ids: rays o, d [R, 3], primitives
+    [N, ...], ids [R, C] -> [R, C]. The three local axes are summed in the
+    JAX package's order (w and p scaled by 1/s, then squared); the rotation
+    is gathered one [R, C] column at a time, not as [R, C, 3, 3]."""
+    rot = quaternion.to_rotation_matrix(quats)  # [N, 3, 3]
+    ctr = centers[ids]  # [R, C, 3]
+    px = o[:, 0:1] - ctr[..., 0]
+    py = o[:, 1:2] - ctr[..., 1]
+    pz = o[:, 2:3] - ctr[..., 2]
+    a = torch.zeros(ids.shape, dtype=o.dtype, device=o.device)
+    b = torch.zeros_like(a)
+    c = torch.zeros_like(a)
+    for i in range(3):
+        r0, r1, r2 = rot[:, 0, i][ids], rot[:, 1, i][ids], rot[:, 2, i][ids]
+        inv_s = (1.0 / scales[:, i])[ids]
+        w = (d[:, 0:1] * r0 + d[:, 1:2] * r1 + d[:, 2:3] * r2) * inv_s
+        p = (px * r0 + py * r1 + pz * r2) * inv_s
+        a = a + w * w
+        b = b + w * p
+        c = c + p * p
     return QuadricCoeffs(a, b, c)

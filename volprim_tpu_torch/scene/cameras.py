@@ -90,15 +90,15 @@ def rays_from_pixels(spec: CameraSpecs, px: torch.Tensor, py: torch.Tensor):
     return origin.expand(d_world.shape), d_world
 
 
-def generate_rays(
+def film_coords(
     spec: CameraSpecs,
     generator: Optional[torch.Generator] = None,
     jitter: bool = True,
     device=None,
 ):
-    """One primary ray per pixel, row-major: (origins, directions) [H*W, 3].
+    """Continuous film coordinates (px, py) [H*W], one per pixel, row-major.
     With ``jitter`` the in-pixel offset is drawn from ``generator``;
-    otherwise rays pass through pixel centers."""
+    otherwise they are the pixel centers."""
     from .. import as_device
 
     dev = as_device(device)
@@ -109,9 +109,16 @@ def generate_rays(
         off = torch.rand(
             (px.shape[0], 2), generator=generator, device=dev, dtype=torch.float32
         )
-        px = px + off[:, 0]
-        py = py + off[:, 1]
-    else:
-        px = px + 0.5
-        py = py + 0.5
-    return rays_from_pixels(spec, px, py)
+        return px + off[:, 0], py + off[:, 1]
+    return px + 0.5, py + 0.5
+
+
+def generate_rays(
+    spec: CameraSpecs,
+    generator: Optional[torch.Generator] = None,
+    jitter: bool = True,
+    device=None,
+):
+    """One primary ray per pixel, row-major: (origins, directions) [H*W, 3],
+    through :func:`film_coords`."""
+    return rays_from_pixels(spec, *film_coords(spec, generator, jitter, device))

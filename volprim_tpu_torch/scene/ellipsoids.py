@@ -30,6 +30,10 @@ class EllipsoidScene:
     def device(self) -> torch.device:
         return self.centers.device
 
+    def scale_prod(self) -> torch.Tensor:
+        """sx * sy * sz per primitive [N]."""
+        return self.scales[..., 0] * self.scales[..., 1] * self.scales[..., 2]
+
     def require_attrs(self, names):
         for n in names:
             if n not in self.attrs:

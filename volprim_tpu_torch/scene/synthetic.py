@@ -1,10 +1,14 @@
-"""Synthetic trained-3DGS-like surface scene, made from a seed with numpy.
+"""Synthetic scenes made from a seed with numpy (no download, no JAX).
 
-The same scene as ``bench.make_scene(n, kind="surface")`` in the JAX
-package, bit for bit: thin anisotropic splats tangent to three bumpy
-spheres plus a ground sheet on y = -1, opacities in [0.55, 0.99] and
-degree-1 SH (k = 4 coefficients per channel). numpy alone builds it, so it
-needs no download and no JAX.
+- ``make_scene``: the trained-3DGS-like surface scene, the same as
+  ``bench.make_scene(n, kind="surface")`` in the JAX package, bit for bit:
+  thin anisotropic splats tangent to three bumpy spheres plus a ground
+  sheet on y = -1, opacities in [0.55, 0.99] and degree-1 SH (k = 4
+  coefficients per channel).
+- ``make_medium``: the "plume", a scattering medium of Gaussian primitives
+  for the path tracer, drawn from the closed-form plume density of the JAX
+  package's ``scene.vol.procedural_smoke`` (its stand-in for the missing
+  ``smoke.vol``).
 """
 
 from __future__ import annotations
@@ -107,4 +111,79 @@ def make_scene(n_prims: int, seed: int = 0, device=None) -> EllipsoidScene:
     return EllipsoidScene(
         centers=t(a["centers"]), scales=t(a["scales"]), quats=t(a["quats"]),
         attrs={"opacities": t(a["opacities"]), "sh_coeffs": t(a["sh_coeffs"])},
+    )
+
+
+# sigma_t scale of the plume, chosen once so that the median optical depth
+# (prb.optical_depth) of the central 64 x 64 unjittered rays of medium_camera()
+# at 512 x 512 lies in [1, 4]: most camera rays scatter, a fair share escape.
+MEDIUM_SIGMA = 1.5e-3
+
+
+def plume_density(x, y, z, phase: float):
+    """The closed-form plume on [0, 1]^3 (vol.procedural_smoke): a swirling
+    core whose radius grows with z, fading out towards z = 1.2. Values lie
+    in [0, 1]."""
+    r = np.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2)
+    radius = 0.12 + 0.25 * z + 0.05 * np.sin(10.0 * z + 3.0 * x)
+    core = np.exp(-((r / np.maximum(radius, 1e-3)) ** 2) * 4.0)
+    swirl = 0.5 + 0.5 * np.sin(8.0 * z + 6.0 * np.arctan2(y - 0.5, x - 0.5) + phase)
+    return core * (0.4 + 0.6 * swirl) * np.clip(1.2 - z, 0.0, 1.0)
+
+
+def make_medium_arrays(n_prims: int = 4096, seed: int = 0) -> dict:
+    """The plume as float32 numpy arrays: centers, scales, quats, albedo
+    [N, 3] and sigma_t [N, 1]. Centers are drawn by rejection sampling of
+    the plume density (u ~ U[0, 1]^3 accepted with probability rho(u)) and
+    mapped to world (2u_x - 1, 2u_z - 1, 2u_y - 1), so the plume rises
+    along +y; each primitive's sigma_t is MEDIUM_SIGMA * rho(u)."""
+    rng = np.random.default_rng(seed)
+    phase = 2.0 * rng.standard_normal()  # the plume's random phase, first
+    us, rhos, n = [], [], 0
+    while n < n_prims:
+        u = rng.uniform(size=(4 * n_prims, 3))
+        rho = plume_density(u[:, 0], u[:, 1], u[:, 2], phase)
+        keep = rng.uniform(size=4 * n_prims) < rho
+        us.append(u[keep])
+        rhos.append(rho[keep])
+        n += int(keep.sum())
+    u = np.concatenate(us)[:n_prims]
+    rho = np.concatenate(rhos)[:n_prims]
+    centers = np.stack([2 * u[:, 0] - 1, 2 * u[:, 2] - 1, 2 * u[:, 1] - 1], axis=1)
+    scales = np.exp(rng.uniform(np.log(0.02), np.log(0.06), size=(n_prims, 3)))
+    quats = rng.normal(size=(n_prims, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    albedo = rng.uniform(0.6, 0.95, size=(n_prims, 3))
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    return dict(
+        centers=f32(centers), scales=f32(scales), quats=f32(quats), albedo=f32(albedo),
+        sigma_t=f32(MEDIUM_SIGMA * rho[:, None]),
+    )
+
+
+def make_medium(n_prims: int = 4096, seed: int = 0, device=None) -> EllipsoidScene:
+    """The plume as an :class:`EllipsoidScene` (extent 3) on ``device``."""
+    from .. import as_device
+
+    dev = as_device(device)
+    a = make_medium_arrays(n_prims, seed)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return EllipsoidScene(
+        centers=t(a["centers"]), scales=t(a["scales"]), quats=t(a["quats"]),
+        attrs={"sigma_t": t(a["sigma_t"]), "albedo": t(a["albedo"])}, extent=3.0,
+    )
+
+
+def medium_camera(width: int = 512, height: int = 512):
+    """The camera of ``examples/render_volume.py`` (fov 40) at this film."""
+    from .cameras import CameraSpecs, look_at
+
+    return CameraSpecs(
+        name="cam", width=width, height=height,
+        to_world=look_at(
+            origin=[-3.98825, -0.306404, -1.74332e-07],
+            target=[-2.99119, -0.229803, -1.30749e-07],
+            up=[-0.076601, 0.997062, -3.34833e-09],
+        ),
+        fov=40.0,
     )
