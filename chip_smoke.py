@@ -10,8 +10,9 @@ the hand-written CUDA compositor kernels on the way, in phases that each
 print one line:
 
 1. probe: the card, its power limit, TF32 off;
-2. build: nvcc builds csrc/composite3_fwd.cu and csrc/composite3_bwd.cu
-   from this checkout, one process each, started together;
+2. build: nvcc builds the seven sources of csrc/ (composite3_fwd/_bwd,
+   ffwalk, composite_fwd/_bwd, composite2_fwd/_bwd) from this checkout, one
+   process each, started together;
 3. kernel: the forward kernel against its plain PyTorch version at the
    headline shapes (T=64 tiles, R=512 rays, S=2048 and 8192 columns, seg
    256, k=4, bf16 SH, compaction on and off), with CUDA-event timings;
@@ -30,7 +31,7 @@ print one line:
 8. train_loop: eight steps of the refine protocol through train.train_step
    (perturbed opacities and SH against a 4-spp render of the scene);
 
-and the path tracer's forward render (models.render -> prb.radiance with
+the path tracer's forward render (models.render -> prb.radiance with
 PRBConfig(walk_backend="pallas"), the 4096-primitive plume under the
 procedural sky, examples/render_volume.py's camera at 512x512, 1 spp),
 whose free-flight walk is the hand-written kernel csrc/ffwalk.cu (built in
@@ -48,7 +49,28 @@ phase 2 with the compositors):
 11. prb_absorbing: the plume with albedo 0 under a unit sky, where each
    ray's radiance is 1 with probability T: the mean radiance of the
    512x512 unjittered rays against the mean of prb.transmittance, within 4
-   standard errors.
+   standard errors;
+
+and the tiled renderer through the v1 and v2 compositors (rf_tiled
+backend="pallas" / "pallas2", the headline scene, film and culls with the
+knobs those backends read, V12; csrc/composite_fwd.cu, composite_bwd.cu,
+composite2_fwd.cu, composite2_bwd.cu):
+
+12. v1_frame: the 2-spp frame (launch counts, frame time, Mrays/s, peak
+    memory, PSNR of a 1-spp unjittered frame against the exact-order
+    integrator on phase 5's subsample and against phase 5's fused frame),
+    then every forward launch's recorded inputs replayed through the
+    wrapper against the plain version (ATOL / RTOL and KILL_FLIP);
+13. v1_train_step: the full-width train step (1 spp, L1 against a zero
+    image; finite nonzero gradients of all five parameters, step time,
+    peak memory), then its forward and backward launches' inputs replayed
+    against the plain versions, the backward held to an f64 run of the
+    plain version that takes the f32 versions' a, b, c and q (yard12,
+    compare_grads12), and again with max_depth 8;
+14. v2_frame and 15. v2_train_step: the same through backend="pallas2".
+The frames and steps are checked against their plain versions, not
+against a quality limit: v1 and v2 compute q = c - b^2 / a, which cancels
+at this scene's scale ratios.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -114,7 +136,8 @@ TRAIN = dict(
 # bf16 ulp of its own value plus GSH_FLOOR of its tile row's largest (for
 # sums that cancel), and at most GSH_DIFF_SHARE of the nonzero elements
 # rounded differently at all (taking the bf16 basis for the f32 one moves
-# most of them by an ulp).
+# most of them by an ulp). The v1 / v2 backwards hold every row, their f32
+# gsh included, to the band and median checks, against :func:`yard12`.
 GRAD_BAND = 4.0
 GRAD_MEDIAN = 2.0
 GRAD_FLOOR = 1e-6
@@ -152,6 +175,31 @@ OPS_ERF_TERM = OPS_ERFF + 8
 WALK_ATOL, WALK_RTOL, WALK_DIFF_SHARE = 5e-3, 1e-3, 1e-3
 # the path tracer's cell: the plume, and render_volume.py's film
 PRB_PRIMS, PRB_WIDTH = 4096, 512
+
+
+# The v1 / v2 cells (backend="pallas" / "pallas2"): the headline frame's
+# scene, film and culls with the knobs those backends read (bench.py:813-831;
+# prim_resort on by default). The fused-only knobs are left out: v1 and v2
+# ignore them, as in JAX.
+V12 = dict(
+    max_depth=128, tile_pixels=256, max_candidates=2048, segment=256,
+    cluster_size=16, coarse_group=4, coarse_factor=8, super_group=4,
+)
+# tiles per call of a plain version run in f64 (memory)
+TILE_CHUNK = 128
+# f32 operations per (ray, column) pair that a v1 / v2 kernel walks: the
+# coefficients (v1: three 10-term dots, 57; v2: a 11, b 5), then q 3, clamp
+# 1, disc 2, t_near 5 and the hit test 2
+OPS_PAIR12 = {"pallas": 70, "pallas2": 29}
+
+
+def ops_hit12_bwd(backend, k):
+    """f32 operations of the backward per hit under the cap: the forward's
+    (17 + 6k), the adjoints of w, the carries, alpha, q, a and b (32), the
+    feature rows (v1: 10 rows of 5; v2: 9 rows of 1), the SH adjoints (3k)
+    and one add per adjoint row into the sum over the tile's rays."""
+    grad, cols = (50, 11) if backend == "pallas" else (9, 11)
+    return 17 + 6 * k + 32 + grad + 3 * k + cols + 3 * k
 
 
 def ops_hit_fwd(k):
@@ -338,21 +386,19 @@ def bf16_ulp(x):
     return torch.where(x != 0, torch.ldexp(torch.ones_like(x), e - 8), 0.0)
 
 
-def compare_grads(got, plain, yard) -> dict:
-    """The backward kernel's (gpf, gsh) against the plain version's, with
-    the plain version's gpf in f64 as the yardstick (see GRAD_BAND). Per
-    row of gpf it reports the median band beside the median |g|, so a
-    reader can see the check is tight enough to fail a wrong kernel."""
-    gk, sk = got
-    gp, sp = plain
-    gy = yard.double()
+def band_check(gk, gp, gy) -> dict:
+    """The band and median checks of :func:`compare_grads` on [T, rows, S]
+    arrays: the kernel's ``gk`` and the plain version's ``gp`` against the
+    f64 yardstick ``gy``. Returns the elements outside the band, per-row
+    medians, and whether every check passed."""
+    gy = gy.double()
     e_k, e_p = (gk.double() - gy).abs(), (gp.double() - gy).abs()
-    tile_row = gy.abs().amax(dim=2, keepdim=True)  # [T, 16, 1]
+    tile_row = gy.abs().amax(dim=2, keepdim=True)
     band = GRAD_BAND * e_p.amax(dim=2, keepdim=True) + GRAD_FLOOR * tile_row
     outside = e_k > band
     carry = gy != 0
-    rows, medians_ok = [], True
-    for i in range(16):
+    rows, failed = [], []
+    for i in range(gy.shape[1]):
         m = carry[:, i]
         if not bool(m.any()):
             rows.append(None)
@@ -360,12 +406,26 @@ def compare_grads(got, plain, yard) -> dict:
         med = lambda x: float(x[:, i][m].median())  # noqa: E731
         g_med, k_med, p_med = med(gy.abs()), med(e_k), med(e_p)
         ok = k_med <= GRAD_MEDIAN * p_med + GRAD_FLOOR * g_med
-        medians_ok &= ok
+        if not ok:
+            failed.append(i)
         rows.append({
             "median_g": g_med, "median_band": med(band.expand_as(gy)),
             "median_dev": k_med, "median_dev_plain": p_med,
             "outside": int(outside[:, i].sum()), "median_ok": ok,
         })
+    n_out = int(outside.sum())
+    return {"rows": rows, "elements_outside_band": n_out, "rows_median_failed": failed,
+            "ok": n_out == 0 and not failed}
+
+
+def compare_grads(got, plain, yard) -> dict:
+    """The backward kernel's (gpf, gsh) against the plain version's, with
+    the plain version's gpf in f64 as the yardstick (see GRAD_BAND). Per
+    row of gpf it reports the median band beside the median |g|, so a
+    reader can see the check is tight enough to fail a wrong kernel."""
+    gk, sk = got
+    gp, sp = plain
+    band = band_check(gk, gp, yard)
     sk, sp = sk.float(), sp.float()
     sdiff = (sk - sp).abs()
     s_band = bf16_ulp(torch.maximum(sk.abs(), sp.abs())) + GSH_FLOOR * sp.abs().amax(
@@ -380,7 +440,7 @@ def compare_grads(got, plain, yard) -> dict:
         "gpf": {
             "max_abs": float((gk - gp).abs().max()),
             "max_rel_tile_row": float(((gk - gp).abs() / tile_row_p).max()),
-            "elements_outside_band": int(outside.sum()), "rows": rows,
+            "elements_outside_band": band["elements_outside_band"], "rows": band["rows"],
         },
         "gsh": {
             "max_abs": float(sdiff.max()),
@@ -388,9 +448,43 @@ def compare_grads(got, plain, yard) -> dict:
             "elements_outside_ulp": s_out,
             "share_differing": s_share,
         },
-        "ok": not bool(outside.any()) and medians_ok and s_out == 0
-        and s_share <= GSH_DIFF_SHARE,
+        "ok": band["ok"] and s_out == 0 and s_share <= GSH_DIFF_SHARE,
     }
+
+
+def v12_rows(grads):
+    """The v1 / v2 backward's (gpf [T, S, 16], gcol [T, k, S],
+    gsh [T, S, 48]) as one [T, 16 + k + 48, S] array."""
+    gpf, gcol, gsh = grads
+    return torch.cat([gpf.transpose(1, 2), gcol, gsh.transpose(1, 2)], dim=1)
+
+
+def compare_grads12(got, plain, yard) -> dict:
+    """The v1 / v2 backward kernel's (gpf, gcol, gsh) against the plain
+    version's, with the plain version's f64 run (:func:`yard12`) as the
+    yardstick: every row
+    of gpf, of gcol (opacity; v2 also c0) and of gsh (f32 here) is held per
+    tile and row to the band and per row to the median check of
+    :func:`compare_grads` (GRAD_BAND, GRAD_MEDIAN, GRAD_FLOOR)."""
+    gk, gp, gy = v12_rows(got), v12_rows(plain), v12_rows(yard)
+    out = band_check(gk, gp, gy)
+    # how tight the median check is: the largest row median deviation of
+    # the kernel and of the plain version, each over the row's median |g|
+    live = [q for q in out["rows"] if q and q["median_g"] > 0]
+    for key, dev in (("max_row_median_dev_rel", "median_dev"),
+                     ("max_row_median_dev_plain_rel", "median_dev_plain")):
+        out[key] = max((q[dev] / q["median_g"] for q in live), default=0.0)
+    # how tight the median check is: the largest row median deviation of
+    # the kernel and of the plain version, each over the row's median |g|
+    live = [q for q in out["rows"] if q and q["median_g"] > 0]
+    for key, dev in (("max_row_median_dev_rel", "median_dev"),
+                     ("max_row_median_dev_plain_rel", "median_dev_plain")):
+        out[key] = max((q[dev] / q["median_g"] for q in live), default=0.0)
+    out["max_abs"] = float((gk - gp).abs().max())
+    out["max_rel_tile_row"] = float(
+        ((gk - gp).abs() / gp.abs().amax(dim=2, keepdim=True).clamp(min=1e-30)).max()
+    )
+    return out
 
 
 @torch.no_grad()
@@ -460,6 +554,344 @@ def compare_walk(got, want, n_active: int) -> dict:
     )
 
 
+class V12Api:
+    """The v1 or v2 compositor's wrappers, launchers, plain versions and
+    launch counters, and how its recorded launch arguments split into
+    tensors and keywords."""
+
+    def __init__(self, backend):
+        from volprim_tpu_torch.kernels import composite, composite2, composite_vjp
+
+        self.backend = backend
+        if backend == "pallas":
+            self.fwd_mod, self.bwd_mod = composite, composite_vjp
+            self.fwd, self.fwd_ref = composite.composite_tiles, composite.composite_tiles_reference
+            self.bwd = composite_vjp.composite_tiles_bwd
+            self.bwd_ref = composite_vjp.composite_tiles_bwd_reference
+            self.fwd_counter, self.n_in = composite.composite_tiles, 7
+            self.keys = ("seg", "extent2", "max_depth", "beta_kill")
+            self.bwd_counter = composite_vjp.composite_tiles_bwd
+        else:
+            self.fwd_mod = self.bwd_mod = composite2
+            self.fwd, self.fwd_ref = composite2.composite_tiles2_fwd, composite2.composite_tiles2_reference
+            self.bwd = composite2.composite_tiles2_bwd
+            self.bwd_ref = composite2.composite_tiles2_bwd_reference
+            self.fwd_counter, self.n_in = composite2.composite_tiles2, 4
+            self.keys = ("seg", "extent2", "max_depth", "beta_kill", "sh_k")
+            self.bwd_counter = composite2.composite_tiles2_bwd
+
+    def split(self, args, n_extra=0):
+        """Recorded launch arguments -> (tensors, keywords); the backward
+        has ``n_extra`` = 2 more tensors (the cotangents)."""
+        n = self.n_in + n_extra
+        return list(args[:n]), dict(zip(self.keys, args[n:]))
+
+    def walk_fns(self, tensors, kw):
+        """(coeffs_of, opac_of) of the plain versions on these inputs."""
+        from volprim_tpu_torch.kernels import composite, composite2
+
+        if self.backend == "pallas":
+            fa, fb, fc, _, pf, opac, _ = tensors
+            seg = kw["seg"]
+            return (composite.v1_coeffs(fa, fb, fc, pf, seg),
+                    lambda si: opac[:, :, si * seg:(si + 1) * seg])
+        return composite2._walk_args(*tensors, kw["seg"], kw["sh_k"])[:2]
+
+    def sh_k(self, tensors, kw):
+        """SH coefficients per channel that the kernels evaluate: v2's sh_k;
+        v1's basis columns that are nonzero somewhere (the kernel skips a
+        column that is zero across a warp; rf_tiled pads the basis to 16)."""
+        if self.backend == "pallas":
+            return int((tensors[3] != 0).any(dim=1).any(dim=0).sum())
+        return kw["sh_k"]
+
+
+@torch.no_grad()
+def work12(api, tensors, kw) -> dict:
+    """What one v1 / v2 compositor call on these inputs must do, and the
+    least time of its forward and backward on this card. Pairs: every
+    (ray, column) pair up to the ray's cap (the pair that takes its count
+    past max_depth included); hits: pairs that hit under the cap. Bytes:
+    the ray inputs, the columns of the segments that some ray of the tile
+    enters under its cap, and the outputs, each once; of the inputs only
+    the entries the kernels read: v1's 10 live features of fa, fb, fc and pf
+    and its live basis columns, v2's direction and 9 live features, and
+    3 k SH floats of a column (k = api.sh_k)."""
+    from volprim_tpu_torch.kernels import composite
+
+    coeffs_of, opac_of = api.walk_fns(tensors, kw)
+    t, r = tensors[0].shape[:2]
+    s = tensors[-1].shape[1]
+    seg, md = kw["seg"], kw["max_depth"]
+    count = torch.zeros((t, r, 1), device=tensors[0].device)
+    pairs = hits = live_cols = 0
+    for si in range(s // seg):
+        live_cols += int((count <= md).any(dim=1).sum()) * seg
+        a, b, c = coeffs_of(si)
+        _, hit, _, _, alpha0 = composite.pair_terms(a, b, c, opac_of(si), kw["extent2"])
+        pos = (alpha0 > 0.0).to(count.dtype)
+        cum = count + torch.cumsum(pos, dim=-1)
+        pairs += int((cum - pos <= md).sum())
+        hits += int((hit & (cum <= md)).sum())
+        count = cum[..., -1:]
+        del a, b, c, hit, alpha0, pos, cum
+    k = api.sh_k(tensors, kw)
+    v1 = api.backend == "pallas"
+    ray_bytes = t * r * ((3 * 10 + k) if v1 else 3) * 4
+    col_bytes = ((10 + 1) if v1 else (9 + 2)) * 4 + 3 * k * 4  # features, opac (c0), SH
+    out_cols = 16 + (1 if v1 else 2) + 48
+    fwd_bytes = ray_bytes + live_cols * col_bytes + t * r * 4 * 4
+    bwd_bytes = fwd_bytes + t * r * 4 * 4 + t * s * out_cols * 4
+    ops_pair = OPS_PAIR12[api.backend]
+    out = dict(pairs=pairs, hits=hits, live_columns=live_cols, sh_k=k)
+    for name, nbytes, ops in (
+        ("fwd", fwd_bytes, pairs * ops_pair + hits * ops_hit_fwd(k)),
+        ("bwd", bwd_bytes, pairs * ops_pair + hits * ops_hit12_bwd(api.backend, k)),
+    ):
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+        out[f"{name}_bound_ms"] = max(t_bytes, t_ops)
+        out[f"{name}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        out[f"{name}_bytes"], out[f"{name}_ops"] = nbytes, ops
+    return out
+
+
+@torch.no_grad()
+def check_fwd12(api, tensors, kw, reps=10) -> dict:
+    """The forward wrapper (which launches the kernel) against its plain
+    version on the same inputs, with CUDA-event times of both."""
+    got = api.fwd(*tensors, **kw)
+    want = api.fwd_ref(*tensors, **kw)
+    torch.cuda.synchronize()
+    nr = tensors[0].shape[0] * tensors[0].shape[1]
+    row = dict(L=compare(got[0], want[0], nr), beta=compare(got[1], want[1], nr))
+    del got, want
+    row["ok"] = row["L"]["ok"] and row["beta"]["ok"]
+    if reps:
+        row["ms"] = cuda_ms(lambda: api.fwd(*tensors, **kw), reps)
+        row["plain_ms"] = cuda_ms(lambda: api.fwd_ref(*tensors, **kw), 2, warmup=1)
+    return row
+
+
+@torch.no_grad()
+def yard12(bwd_ref, tensors, cot, kw):
+    """The f64 yardstick of a v1 / v2 backward: its plain version
+    ``bwd_ref`` on ``tensors`` in f64, TILE_CHUNK tiles at a time, with a,
+    b, c, q and the hit test formed in f32 (``pair_dtype``). q = c - b^2 / a
+    cancels at small primitive scales, so an f64 q would take other hits
+    and other alphas than both f32 versions and measure that instead of
+    their compositing and adjoint arithmetic."""
+    t = tensors[0].shape[0]
+    parts = [
+        bwd_ref(*(x[i:i + TILE_CHUNK].double() for x in tensors),
+                *(c[i:i + TILE_CHUNK] for c in cot), pair_dtype=torch.float32, **kw)
+        for i in range(0, t, TILE_CHUNK)
+    ]
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
+
+
+@torch.no_grad()
+def check_bwd12(api, tensors, cot, kw, reps=10) -> dict:
+    """The backward wrapper against its plain version in f32, with
+    :func:`yard12` as the yardstick (compare_grads12), and CUDA-event times
+    of both."""
+    got = api.bwd(*tensors, *cot, **kw)
+    plain = api.bwd_ref(*tensors, *cot, **kw)
+    yard = yard12(api.bwd_ref, tensors, cot, kw)
+    torch.cuda.synchronize()
+    row = compare_grads12(got, plain, yard)
+    del got, plain, yard
+    if reps:
+        row["ms"] = cuda_ms(lambda: api.bwd(*tensors, *cot, **kw), reps)
+        row["plain_ms"] = cuda_ms(lambda: api.bwd_ref(*tensors, *cot, **kw), 2, warmup=1)
+    return row
+
+
+def psnr_db(a, b) -> float:
+    return -10.0 * math.log10(max(float(torch.mean((a - b) ** 2)), 1e-12))
+
+
+def v12_frame(backend, name, scene, camera, exact, sel, fused_img, details, out=None) -> dict:
+    """Phase 12 / 14: the V12 frame through ``backend``; every forward
+    launch's recorded inputs are replayed through the wrapper against the
+    plain version. Returns the kernel's numbers for the kernels line."""
+    from volprim_tpu_torch.models import rf_tiled
+
+    t_phase = time.perf_counter()
+    api = V12Api(backend)
+    cfg = rf_tiled.RFTiledConfig(backend=backend, **V12)
+    state = rf_tiled.build_state(scene, cfg)
+
+    def frame(seed, spp=SPP, jitter=True):
+        return rf_tiled.render_state(state, camera, cfg, None, spp=spp, seed=seed, jitter=jitter)
+
+    # the counted run: counts set to 0 just before, read just after
+    recorded, launch = [], api.fwd_mod._launch
+
+    def recording(*a):
+        recorded.append(a)
+        return launch(*a)
+
+    api.fwd_mod._launch = recording
+    api.fwd_counter.launches = 0
+    try:
+        img = frame(1)
+        torch.cuda.synchronize()
+    finally:
+        launches = api.fwd_counter.launches
+        api.fwd_mod._launch = launch
+    if launches != SPP or len(recorded) != SPP:
+        fail(f"{name}: the compositor launched {launches} times ({len(recorded)} recorded), "
+             f"expected {SPP} (one per sample)")
+    if tuple(img.shape) != (WIDTH, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+        fail(f"{name}: the frame is not a finite [{WIDTH}, {WIDTH}, 3] image")
+    torch.cuda.reset_peak_memory_stats()
+    seeds = iter(range(100, 200))
+    times = cuda_times(lambda: frame(next(seeds)), 10)
+    frame_ms = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img1 = frame(0, spp=1, jitter=False)
+    psnr_exact = psnr_db(img1.reshape(-1, 3)[sel], exact)
+    psnr_fused = psnr_db(img1, fused_img)
+    busy = None
+    if out:
+        busy = device_profile(lambda i: frame(300 + i), out, f"chip_smoke_{name}_profile.txt")
+    rows = []
+    for a in recorded:
+        tensors, kw = api.split(a)
+        row = check_fwd12(api, tensors, kw)
+        row.update(tiles=int(tensors[0].shape[0]), rays=int(tensors[0].shape[1]),
+                   S=int(tensors[-1].shape[1]), **work12(api, tensors, kw))
+        rows.append(row)
+        phase(f"kernel_on_{name}_inputs", **row)
+    bad = [r_ for r_ in rows if not r_["ok"]]
+    phase(
+        name, launches=launches, frame_ms=frame_ms, frame_ms_min=times[0],
+        frame_ms_max=times[-1], mrays_per_s=WIDTH * WIDTH * SPP / (frame_ms / 1e3) / 1e6,
+        peak_mem_gib=peak, mean_radiance=float(img.mean()),
+        psnr_vs_exact_db=psnr_exact, psnr_vs_fused_db=psnr_fused,
+        device_busy_ms=busy, device_idle_share=None if busy is None else 1.0 - busy / frame_ms,
+        kernel_ms=sum(r_["ms"] for r_ in rows), plain_ms=sum(r_["plain_ms"] for r_ in rows),
+        rays_outside_tol=sum(r_[x]["rays_outside_tol"] for r_ in rows for x in ("L", "beta")),
+        seconds=round(time.perf_counter() - t_phase, 2),
+    )
+    details[name] = dict(times=times, launches=rows)
+    if bad:
+        fail(f"{name}: the forward kernel disagrees with its plain version on "
+             f"{len(bad)} of the frame's {len(rows)} launches")
+    return dict(
+        launches=launches, ms=sum(r_["ms"] for r_ in rows),
+        plain_ms=sum(r_["plain_ms"] for r_ in rows),
+        bound_ms=sum(r_["fwd_bound_ms"] for r_ in rows),
+        bound_by=max(rows, key=lambda r_: r_["fwd_bound_ms"])["fwd_bound_by"],
+        max_abs_err=max(r_[x]["max_abs"] for r_ in rows for x in ("L", "beta")),
+    )
+
+
+def v12_train_step(backend, name, camera, dev, details, out=None) -> dict:
+    """Phase 13 / 15: the full-width train step through ``backend``
+    (1 spp, L1 against a zero image, gradients of all five parameters);
+    its forward and backward launches' own inputs are replayed against the
+    plain versions, then again with max_depth 8. Returns the backward
+    kernel's numbers and the forward's replay errors."""
+    from volprim_tpu_torch import interop, train
+    from volprim_tpu_torch.models import rf_tiled
+    from volprim_tpu_torch.scene import synthetic
+
+    t_phase = time.perf_counter()
+    api = V12Api(backend)
+    cfg = rf_tiled.RFTiledConfig(backend=backend, **V12)
+    base = synthetic.make_scene(N_PRIMS, device=dev)
+    params = {
+        "centers": base.centers, "scales": base.scales, "quats": base.quats,
+        "opacities": base.attrs["opacities"], "sh_coeffs": base.attrs["sh_coeffs"],
+    }
+    params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+
+    def step(seed):
+        for p in params.values():
+            p.grad = None
+        img = train.render_cameras(train.to_scene(params, base), [camera], cfg, spp=1,
+                                   seed=seed)
+        loss = torch.mean(torch.abs(img))  # L1 against a zero image (bench.py)
+        loss.backward()
+        return loss.detach()
+
+    rec_f, rec_b = [], []
+    launch, launch_bwd = api.fwd_mod._launch, api.bwd_mod._launch_bwd
+
+    def rf_(*a):
+        rec_f.append(a)
+        return launch(*a)
+
+    def rb_(*a):
+        rec_b.append(a)
+        return launch_bwd(*a)
+
+    api.fwd_mod._launch, api.bwd_mod._launch_bwd = rf_, rb_
+    api.fwd_counter.launches = 0
+    api.bwd_counter.launches = 0
+    try:
+        loss0 = step(0)
+        torch.cuda.synchronize()
+    finally:
+        counts = (api.fwd_counter.launches, api.bwd_counter.launches)
+        api.fwd_mod._launch, api.bwd_mod._launch_bwd = launch, launch_bwd
+    if counts != (1, 1) or (len(rec_f), len(rec_b)) != (1, 1):
+        fail(f"{name}: the step launched (forward, backward) {counts} times, expected (1, 1)")
+    grad_max = {}
+    for k in interop.TRAIN_KEYS:
+        g = params[k].grad
+        if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0):
+            fail(f"{name}: the gradient of {k} is missing, not finite or all zero")
+        grad_max[k] = float(g.abs().max())
+    torch.cuda.reset_peak_memory_stats()
+    seeds = iter(range(1, 100))
+    times = cuda_times(lambda: step(next(seeds)), 5, warmup=1)
+    step_ms = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy = None
+    if out:
+        busy = device_profile(lambda i: step(10 + i), out, f"chip_smoke_{name}_profile.txt")
+    del params, base
+    a = [x.detach() if torch.is_tensor(x) else x for x in rec_b[0]]
+    del rec_f, rec_b
+    tensors, kw = api.split(a, n_extra=2)
+    tensors, cot = tensors[:-2], tensors[-2:]
+    w = work12(api, tensors, kw)
+    reps = {}
+    for md in (kw["max_depth"], 8):
+        kw_md = dict(kw, max_depth=md)
+        timed = 10 if md == kw["max_depth"] else 0
+        f_row = check_fwd12(api, tensors, kw_md, reps=timed)
+        b_row = check_bwd12(api, tensors, cot, kw_md, reps=timed)
+        b_rows = b_row.pop("rows")
+        reps[md] = (f_row, b_row)
+        phase(f"kernels_on_{name}_inputs", max_depth=md, fwd=f_row, bwd=b_row)
+        details[f"{name}_max_depth_{md}"] = dict(fwd=f_row, bwd=b_row, bwd_rows=b_rows)
+        if not (f_row["ok"] and b_row["ok"]):
+            fail(f"{name}: a kernel disagrees with its plain version on the step's inputs "
+                 f"at max_depth {md}")
+    f_row, b_row = reps[kw["max_depth"]]
+    phase(
+        name, launches_fwd=counts[0], launches_bwd=counts[1], loss=float(loss0),
+        step_ms=step_ms, step_ms_min=times[0], step_ms_max=times[-1], peak_mem_gib=peak,
+        device_busy_ms=busy, device_idle_share=None if busy is None else 1.0 - busy / step_ms,
+        grad_max_abs=grad_max, tiles=int(tensors[0].shape[0]),
+        rays=int(tensors[0].shape[1]), S=int(tensors[-1].shape[1]),
+        fwd_kernel_ms=f_row["ms"], bwd_kernel_ms=b_row["ms"],
+        bwd_elements_outside_band=sum(reps[m][1]["elements_outside_band"] for m in reps),
+        seconds=round(time.perf_counter() - t_phase, 2), **w,
+    )
+    details[name] = dict(step_times=times, work=w)
+    return dict(
+        launches=counts[1], ms=b_row["ms"], plain_ms=b_row["plain_ms"],
+        bound_ms=w["bwd_bound_ms"], bound_by=w["bwd_bound_by"],
+        max_abs_err=max(reps[m][1]["max_abs"] for m in reps),
+        fwd_max_abs_err=max(reps[m][0][x]["max_abs"] for m in reps for x in ("L", "beta")),
+        fwd_ms=f_row["ms"], fwd_plain_ms=f_row["plain_ms"], fwd_bound_ms=w["fwd_bound_ms"],
+    )
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="directory for details and a profiler table")
@@ -495,11 +927,11 @@ def main() -> None:
 
     # ---- 2. build: one nvcc per source, all started together ------------
     t0 = time.perf_counter()
-    names = ("composite3_fwd", "composite3_bwd", "ffwalk")
+    names = ("composite3_fwd", "composite3_bwd", "ffwalk", "composite_fwd",
+             "composite_bwd", "composite2_fwd", "composite2_bwd")
     _build.build(*names)
-    for name in names[:2]:
-        composite3._lib(name)
-    ffwalk._lib()
+    for name in names:
+        _build.load(name)
     seconds = round(time.perf_counter() - t0, 2)
     for name in names:
         info = _build.build_info.get(name, {})
@@ -979,6 +1411,15 @@ def main() -> None:
         fail(f"absorbing plume: mean L {mean_l} vs mean T {mean_t}, limit {limit}, "
              f"{dead_lit} budget-dead rays with light")
 
+    # ---- 12-15. the v1 and v2 compositors: frames and train steps ---------
+    v12 = {}
+    for backend, tag in (("pallas", "v1"), ("pallas2", "v2")):
+        v12[f"{tag}_fwd"] = v12_frame(backend, f"{tag}_frame", scene, camera, exact, sel,
+                                      img1, details, args.out)
+        v12[f"{tag}_bwd"] = v12_train_step(backend, f"{tag}_train_step", camera, dev,
+                                           details, args.out)
+        v12[f"{tag}_fwd"]["fwd_step_err"] = v12[f"{tag}_bwd"]["fwd_max_abs_err"]
+
     if args.out:
         busy_ms, split = device_profile(
             lambda i: prb_frame(700 + i), args.out, "chip_smoke_prb_profile.txt",
@@ -1051,7 +1492,24 @@ def main() -> None:
         "bound_ms": walk_bound_ms,
         "bound_by": "bytes" if bound_bytes >= walk_bound_ms / 2 else "operations",
         "library_ms": None,
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"volprim_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": v12[key]["launches"],
+        "max_abs_err": max(v12[key]["max_abs_err"], v12[key].get("fwd_step_err", 0.0)),
+        "ms": v12[key]["ms"],
+        "plain_ms": v12[key]["plain_ms"],
+        "bound_ms": v12[key]["bound_ms"],
+        "bound_by": v12[key]["bound_by"],
+        "library_ms": None,
+    } for name, key, replaces in (
+        ("composite_fwd", "v1_fwd", "volprim_tpu/pallas_kernels/composite.py:38"),
+        ("composite_bwd", "v1_bwd", "volprim_tpu/pallas_kernels/composite_vjp.py:48"),
+        ("composite2_fwd", "v2_fwd", "volprim_tpu/pallas_kernels/composite2.py:105"),
+        ("composite2_bwd", "v2_bwd", "volprim_tpu/pallas_kernels/composite2.py:159"),
+    )]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

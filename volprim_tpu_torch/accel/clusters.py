@@ -122,3 +122,14 @@ def build_super_spheres(centers: torch.Tensor, radii: torch.Tensor, group: int):
     sc = torch.where(empty[:, None], torch.full_like(sc, 1e7), sc)
     sr = torch.where(empty, torch.full_like(sr, 1e-3), sr)
     return sc, sr
+
+
+def expand_cluster_ids(cluster_ids: torch.Tensor, cluster_valid: torch.Tensor,
+                       cluster_size: int):
+    """[T, K] cluster shortlist -> ([T, K*cs] primitive ids, valid) into the
+    Morton-sorted arrays (a cluster is a contiguous range of primitives)."""
+    t, k = cluster_ids.shape
+    offs = torch.arange(cluster_size, dtype=cluster_ids.dtype, device=cluster_ids.device)
+    ids = (cluster_ids[..., None] * cluster_size + offs).reshape(t, k * cluster_size)
+    valid = cluster_valid[..., None].expand(t, k, cluster_size).reshape(t, k * cluster_size)
+    return ids, valid

@@ -1,0 +1,52 @@
+// Camera-relative tile compositor v2, forward pass, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel volprim_tpu/pallas_kernels/composite2.py:105
+// (_fwd_kernel, called from _forward :307). The plain PyTorch version of the
+// same function is composite_tiles2_reference in
+// volprim_tpu_torch/kernels/composite2.py; composite_tiles2 there launches
+// this kernel for CUDA tensors. The pair math, the walk and what bounds it
+// are described in composite12_common.cuh (policy V2<K>: a = F6(d) . M6,
+// b = d . U, c = c0, F6 and the SH basis of degree sqrt(K) - 1 built from d).
+
+#include "composite12_common.cuh"
+
+using namespace composite12;
+
+// C entry point, bound with ctypes. Tensors: d8 [T, R, 8] f32 (direction in
+// 0-2), pf_cam [T, S, 16] f32 (M6, U, ...), aux [T, 2, S] f32 (opacity, c0),
+// sh3 [T, S, 48] f32, outputs out_l [T, R, 3] and out_beta [T, R] f32, all
+// contiguous on one device; k is the live SH count (1, 4, 9 or 16).
+// Launches on `stream` and returns the launch's cudaError_t (0 on success);
+// it does not synchronise.
+extern "C" int composite2_fwd(const void* d8, const void* pf, const void* aux,
+                              const void* sh3, void* out_l, void* out_beta,
+                              int T, int R, int S, int seg, int k, float e2,
+                              int max_depth, float log_kill, void* stream) {
+  Args A{};
+  A.ray0 = static_cast<const float*>(d8);
+  A.pf = static_cast<const float*>(pf);
+  A.col = static_cast<const float*>(aux);
+  A.sh3 = static_cast<const float*>(sh3);
+  A.out_l = static_cast<float*>(out_l);
+  A.out_beta = static_cast<float*>(out_beta);
+  A.R = R;
+  A.S = S;
+  A.seg = seg;
+  A.e2 = e2;
+  A.max_depth = max_depth;
+  A.log_kill = log_kill;
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (k) {
+    case 1: e = launch_fwd<V2<1>>(A, T, st); break;
+    case 4: e = launch_fwd<V2<4>>(A, T, st); break;
+    case 9: e = launch_fwd<V2<9>>(A, T, st); break;
+    case 16: e = launch_fwd<V2<16>>(A, T, st); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
+}
+
+extern "C" const char* composite2_fwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

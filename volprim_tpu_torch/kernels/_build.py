@@ -116,3 +116,27 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+_BOUND: set = set()
+
+
+def bind(name: str, argtypes: list) -> ctypes.CDLL:
+    """:func:`load`, with the entry point ``name`` taking ``argtypes`` and
+    returning an int error code, and ``<name>_error_string`` bound as
+    ``lib.error_string``."""
+    lib = load(name)
+    if name not in _BOUND:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        lib.error_string = err
+        _BOUND.add(name)
+    return lib
+
+
+def raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise if the entry point ``name`` returned a nonzero error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.error_string(err).decode()} ({err})")

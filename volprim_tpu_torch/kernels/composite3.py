@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import sh
+from . import _build
 
 _FEAT = 16
 _SH_Y00 = 0.28209479177387814
@@ -365,28 +366,14 @@ def composite_tiles3_bwd_reference(
     return gpf, gsh.to(sh3.dtype)
 
 
-_LIBS: dict = {}
 # tensor pointers each C entry point takes before its scalar arguments
 _N_POINTERS = {"composite3_fwd": 6, "composite3_bwd": 10}
 
 
 def _lib(name: str = "composite3_fwd"):
     """The ctypes library of ``csrc/<name>.cu`` (built at first use)."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        from . import _build
-
-        lib = _build.load(name)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn = getattr(lib, name)
-        fn.argtypes = [vp] * _N_POINTERS[name] + [ci, ci, ci, ci, ci, cf, ci, cf, ci, vp]
-        fn.restype = ci
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ci]
-        err.restype = ctypes.c_char_p
-        lib.error_string = err
-        _LIBS[name] = lib
-    return lib
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.bind(name, [vp] * _N_POINTERS[name] + [ci, ci, ci, ci, ci, cf, ci, cf, ci, vp])
 
 
 def _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k, extra=()):
@@ -419,12 +406,6 @@ def _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k, extra=()):
     return t, r, s
 
 
-def _raise_on(lib, err, name):
-    if err != 0:
-        msg = lib.error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
-
-
 def _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k,
             compact):
     """Launch csrc/composite3_fwd.cu: (L [T, R, 3], beta [T, R])."""
@@ -440,7 +421,7 @@ def _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k,
             extent2 * 0.5, int(max_depth), _log_kill(beta_kill), int(compact),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(lib, err, "composite3_fwd")
+    _build.raise_on(lib, err, "composite3_fwd")
     composite_tiles3.launches += 1
     return l_out, beta
 
@@ -474,7 +455,7 @@ def _launch_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth,
             sh_k, extent2 * 0.5, int(max_depth), _log_kill(beta_kill),
             int(compact), torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(lib, err, "composite3_bwd")
+    _build.raise_on(lib, err, "composite3_bwd")
     composite_tiles3_bwd.launches += 1
     return gpf, gsh
 

@@ -36,6 +36,8 @@ import ctypes
 import numpy as np
 import torch
 
+from . import _build
+
 BIG = 3.0e37  # the kernels' finite stand-in for +inf
 MAX_KP = 1024  # intervals per ray the CUDA kernel takes
 
@@ -173,23 +175,10 @@ def walk_reference(
     return found[:, 0], resolved[:, 0], bdead[:, 0], capres[:, 0], t_samp[:, 0]
 
 
-_LIB = None
-
-
 def _lib():
     """The ctypes library of ``csrc/ffwalk.cu`` (built at first use)."""
-    global _LIB
-    if _LIB is None:
-        from . import _build
-
-        lib = _build.load("ffwalk")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ffwalk.argtypes = [vp] * 15 + [ci] * 7 + [vp]
-        lib.ffwalk.restype = ci
-        lib.ffwalk_error_string.argtypes = [ci]
-        lib.ffwalk_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("ffwalk", [vp] * 15 + [ci] * 7 + [vp])
 
 
 def _launch(entry, exit_t, cp, alpha, beta, chi, t_budget, t_cap, active, t_min0, k,
@@ -226,9 +215,7 @@ def _launch(entry, exit_t, cp, alpha, beta, chi, t_budget, t_cap, active, t_min0
             r, kp, int(k), int(n_windows), int(bisect_iters), int(solver_iters),
             int(bool(solver_disabled)), torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        msg = lib.ffwalk_error_string(err).decode()
-        raise RuntimeError(f"ffwalk launch failed: {msg} ({err})")
+    _build.raise_on(lib, err, "ffwalk")
     walk.launches += 1
     flags = flags.bool()
     return flags[0], flags[1], flags[2], flags[3], t_samp

@@ -22,11 +22,21 @@ supercluster spheres, cone keys, shortlists) selects integer ids and is
 computed on detached tensors.
 
 Ported: ``backend='fused'`` with the two-level cull, ``budget_classes``,
-``kernel_compact`` and ``cluster_sort``. The TPU layout knobs
-(``feat_major``, ``kernel_batch``, ``tile_group``) have no counterpart.
-The compositor always walks a tile's full stream (its beta is the full
-capped product), so ``early_exit`` changes nothing here. What is not ported
-yet raises NotImplementedError naming its ROADMAP.md item.
+``kernel_compact`` and ``cluster_sort``; ``backend='pallas'`` (v1:
+kernels/composite.py + composite_vjp.py) and ``backend='pallas2'`` (v2,
+camera-relative: kernels/composite2.py), which expand the cluster shortlist
+to primitives, refine it with ``prim_resort`` (True, 'entry', 'cluster',
+'cluster-entry'; on by default, as in JAX), gather [T, S, F] feature, SH and
+opacity tables built by ``build_state`` and composite one sample per
+launch (CUDA kernels on the card, forward and backward). The fused-only
+knobs (``budget_classes``, ``kernel_compact``, ``cluster_sort``) are
+ignored by v1 and v2, as in JAX. The TPU layout knobs (``feat_major``,
+``kernel_batch``, ``tile_group``) have no counterpart. The fused
+compositor always walks a tile's full stream (its beta is the full capped
+product), so ``early_exit`` changes nothing here. What is not ported yet
+(the ``xla`` backend, ``use_clusters=False``, ``order_band``,
+``band_classes``, ``refine_fraction``) raises NotImplementedError naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -38,12 +48,14 @@ import torch
 
 from ..accel import clusters
 from ..accel import tiles as tiling
-from ..kernels import composite3
-from ..ops import srgb_to_linear
+from ..kernels import composite2, composite3, composite_vjp
+from ..ops import quadric, quaternion, sh, srgb_to_linear
 from ..ops.kernels import Kernel
 from ..scene.cameras import CameraSpecs
 from ..scene.ellipsoids import EllipsoidScene
 from .base import pad_primitives
+
+_SH = 16  # SH coefficients per channel block of the v1/v2 table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +71,11 @@ class RFTiledConfig:
     use_clusters: bool = True
     cluster_size: int = 64
     early_exit: bool = False  # accepted for parity; see the module docstring
-    backend: str = "fused"  # the only ported backend (the JAX default is 'xla')
+    # 'fused' (v3), 'pallas' (v1) or 'pallas2' (v2); the JAX default,
+    # 'xla', is not ported
+    backend: str = "fused"
+    # per-primitive depth refinement of the v1/v2 shortlist: None (on for
+    # v1/v2), False, True, 'entry', 'cluster' or 'cluster-entry'
     prim_resort: Optional[bool] = None
     # two-level cull: strips of coarse_group tiles select superclusters
     # (coarse_factor x the per-tile budget), then each tile culls its
@@ -82,23 +98,24 @@ class RFTiledConfig:
 
 
 def _check_config(cfg: RFTiledConfig) -> None:
-    """Refuse what this slice does not port, naming the ROADMAP.md item."""
+    """Refuse what is not ported yet, naming the ROADMAP.md item."""
     todo = {
-        "backend != 'fused'": cfg.backend != "fused",
+        f"backend={cfg.backend!r}": cfg.backend not in ("fused", "pallas", "pallas2"),
+        "use_clusters=False": not cfg.use_clusters,
         "refine_fraction > 0": cfg.refine_fraction > 0.0,
         "order_band > 0": cfg.order_band > 0,
         "band_classes": bool(cfg.band_classes),
-        "prim_resort=True": bool(cfg.prim_resort),
+        "prim_resort with backend='fused'": cfg.backend == "fused" and bool(cfg.prim_resort),
     }
     missing = [k for k, v in todo.items() if v]
     if missing:
         raise NotImplementedError(
             f"rf_tiled: {', '.join(missing)} not ported yet "
-            "(ROADMAP.md §A, rf_tiled options after the fused forward path)"
+            "(ROADMAP.md §A2, the rest of rf_tiled)"
         )
+    if cfg.prim_resort not in (None, False, True, "entry", "cluster", "cluster-entry"):
+        raise ValueError(f"unknown prim_resort {cfg.prim_resort!r}")
     cfg.kernel  # refuses non-Gaussian kernels
-    if not cfg.use_clusters:
-        raise ValueError("backend='fused' requires use_clusters=True")
 
 
 @dataclasses.dataclass
@@ -120,6 +137,12 @@ class RFTiledState:
     cluster_size: int = 64
     super_group: int = 16
     sh_k: int = 1  # live SH coefficients per channel
+    # v1/v2 tables, built only for backend 'pallas' / 'pallas2' (None else):
+    # [N, 16] quadric features (10 used; v1 only), [N] opacities and [N, 48]
+    # channel-major SH blocks of 16
+    feats16: Optional[torch.Tensor] = None
+    opac: Optional[torch.Tensor] = None
+    sh48: Optional[torch.Tensor] = None
 
 
 def build_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledState:
@@ -137,6 +160,8 @@ def build_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledState:
     ncl = n // cs
     sh_coeffs = work.sh_coeffs_3d()  # [N, k, 3]
     k = sh_coeffs.shape[1]
+    # the fused path's bf16 SH cluster rows (built for every backend, as in
+    # JAX: they are cheap and keep one state layout)
     shrows = (
         composite3.fold_sh_rows(sh_coeffs)
         .reshape(ncl, cs, 3 * k)
@@ -162,6 +187,16 @@ def build_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledState:
     )
     tail = suprows.new_zeros((1, 4 * sg))
     tail[0, 3 * sg:] = -1.0
+    tables = {}
+    if cfg.backend in ("pallas", "pallas2"):
+        zeros = sh_coeffs.new_zeros((n, _SH - k))
+        tables["sh48"] = torch.cat(
+            [t for ch in range(3) for t in (sh_coeffs[:, :, ch], zeros)], dim=1
+        )
+        tables["opac"] = work.attrs["opacities"][:, 0]
+    if cfg.backend == "pallas":
+        feats = quadric.prim_features(work.centers, work.scales, work.quats)
+        tables["feats16"] = torch.cat([feats.T, feats.new_zeros((n, 6))], dim=1)
     return RFTiledState(
         prims=work,
         cull_centers=index.centers,
@@ -174,6 +209,7 @@ def build_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledState:
         cluster_size=cs,
         super_group=sg,
         sh_k=k,
+        **tables,
     )
 
 
@@ -305,7 +341,8 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
     cos_half = torch.cos(half)
 
     gc = cfg.coarse_group
-    use_classes = bool(cfg.budget_classes)
+    use_fused = cfg.backend == "fused"
+    use_classes = bool(cfg.budget_classes) and use_fused  # fused only, as in JAX
     id_map = None
     if gc > 1 and n_tiles % gc == 0:
         # ---- two-level cull: strip cones -> per-tile refinement ----------
@@ -365,6 +402,10 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
         )
         if not use_classes:
             cl_ids, cl_valid = tiling.shortlist(keys, k_cl)
+
+    if not use_fused:
+        return _render_v12(state, cl_ids, cl_valid, origin, axis, dirs_cols, px0, py0,
+                           tile_ids, n_tiles, cfg=cfg, spp=spp, seed=seed, jitter=jitter)
 
     # ---- per-frame pack: [Ncl, 16*cs] cluster rows -------------------------
     ncl = work.num_prims // cs
@@ -460,6 +501,102 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
         loc, val = tiling.shortlist(keys[sel], k_eff)
         ids_c = loc if id_map is None else torch.gather(id_map[sel], 1, loc)
         acc[sel] = fused_block(ids_c, val, k_eff, px0[sel], py0[sel], tile_ids[sel])
+    return acc / spp
+
+
+def _neutral_feature(device=None) -> torch.Tensor:
+    """v1 feature row with M = I, c = 0: keeps a > 0 on masked slots."""
+    row = torch.zeros((_SH,), dtype=torch.float32, device=device)
+    row[:3] = 1.0
+    return row
+
+
+def _resort(state, ids, valid, origin, axis, mode):
+    """Order each tile's primitive shortlist by view depth along the tile
+    axis (``mode`` True or 'cluster'), or by the entry-biased key depth
+    minus the ellipsoid's support extent ||diag(s) R^T axis|| ('entry',
+    'cluster-entry'); the 'cluster' modes sort within each cluster only.
+    Invalid slots sort last (key inf; the sorts are stable, as jnp.argsort)."""
+    work = state.prims
+    cs = state.cluster_size
+    c = work.centers.detach()[ids] - origin  # [T, S, 3]
+    depth = c[..., 0] * axis[:, 0:1] + c[..., 1] * axis[:, 1:2] + c[..., 2] * axis[:, 2:3]
+    if mode in ("entry", "cluster-entry"):
+        rot = quaternion.to_rotation_matrix(work.quats.detach()[ids])  # [T, S, 3, 3]
+        ra = (
+            rot[..., 0, :] * axis[:, None, 0:1] + rot[..., 1, :] * axis[:, None, 1:2]
+            + rot[..., 2, :] * axis[:, None, 2:3]
+        )  # (R^T axis)_i
+        v = work.scales.detach()[ids] * ra
+        depth = depth - float(work.extent) * torch.sqrt(
+            v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]
+        )
+    depth = torch.where(valid, depth, torch.inf)
+    t, s = ids.shape
+    if mode in ("cluster", "cluster-entry"):
+        order = torch.argsort(depth.reshape(t, s // cs, cs), dim=-1, stable=True)
+        order = order.reshape(t, s) + (torch.arange(s, device=ids.device) // cs * cs)
+    else:
+        order = torch.argsort(depth, dim=-1, stable=True)
+    return torch.gather(ids, 1, order), torch.gather(valid, 1, order)
+
+
+def _render_v12(state, cl_ids, cl_valid, origin, axis, dirs_cols, px0, py0, tile_ids,
+                n_tiles, *, cfg, spp, seed, jitter):
+    """The v1 / v2 backends after the cull (rf_tiled.py:724-767,
+    :1152-1267): expand the cluster shortlist to primitives, refine its
+    order (prim_resort), pad it to a segment multiple, gather the [T, S, F]
+    tables with neutral rows and zero opacity on invalid slots, and
+    composite one sample per launch. Returns [T, RT, 3]."""
+    dev = px0.device
+    rt = px0.shape[1]
+    ids, valid = clusters.expand_cluster_ids(cl_ids, cl_valid, state.cluster_size)
+    resort = True if cfg.prim_resort is None else cfg.prim_resort
+    if resort:
+        ids, valid = _resort(state, ids, valid, origin, axis, resort)
+    s = ids.shape[1]
+    # the compositors take whole segments: pad small shortlists
+    seg = min(cfg.segment, s)
+    if s % seg:
+        pad = seg - s % seg
+        ids = torch.nn.functional.pad(ids, (0, pad))
+        valid = torch.nn.functional.pad(valid, (0, pad))
+    opac_t = torch.where(valid, state.opac[ids], 0.0)  # [T, S]
+    sh_t = state.sh48[ids]  # [T, S, 48]; invalid slots have opacity 0
+    max_depth = cfg.max_depth if cfg.max_depth > 0 else 10**6
+    kw = dict(seg=seg, extent2=state.extent ** 2, max_depth=max_depth,
+              beta_kill=cfg.beta_kill)
+    k = state.sh_k
+    if cfg.backend == "pallas":
+        pf_t = torch.where(valid[..., None], state.feats16[ids], _neutral_feature(dev))
+        opac_t = opac_t[:, None, :].contiguous()
+    else:
+        cam = composite2.camera_relative_features_from_prims(state.prims, origin)
+        pf_t = torch.where(valid[..., None], cam[ids], composite2.neutral_row(origin))
+        o2 = origin[0] * origin[0] + origin[1] * origin[1] + origin[2] * origin[2]
+        c0_t = torch.where(valid, cam[:, 9][ids], o2)
+        aux_t = torch.stack([opac_t, c0_t], dim=1)  # [T, 2, S]
+
+    acc = torch.zeros((n_tiles, rt, 3), dtype=torch.float32, device=dev)
+    for i in range(spp):
+        off = _tile_offsets(seed, i, tile_ids, n_tiles, rt, jitter, dev)
+        d = torch.stack(dirs_cols(px0 + off[..., 0], py0 + off[..., 1]), dim=-1)  # [T, RT, 3]
+        if cfg.backend == "pallas":
+            d_flat = d.reshape(-1, 3)
+            fa, fb, fc = quadric.ray_features(origin.expand_as(d_flat), d_flat)
+            pad = d_flat.new_zeros((d_flat.shape[0], 6))
+            fa, fb, fc = (torch.cat([f, pad], -1).reshape(n_tiles, rt, 16) for f in (fa, fb, fc))
+            basis = sh.eval_basis(d_flat, sh.degree_from_coeffs(k))
+            basis = torch.cat([basis, d_flat.new_zeros((d_flat.shape[0], _SH - k))], -1)
+            l, _ = composite_vjp.composite_tiles_ad(
+                fa, fb, fc, basis.reshape(n_tiles, rt, _SH), pf_t, opac_t, sh_t, **kw
+            )
+        else:
+            d8 = torch.cat([d, d.new_zeros(d.shape[:-1] + (5,))], dim=-1)
+            l, _ = composite2.composite_tiles2(d8, pf_t, aux_t, sh_t, sh_k=k, **kw)
+        if cfg.srgb_primitives:
+            l = srgb_to_linear(l)  # per sample
+        acc = acc + l
     return acc / spp
 
 

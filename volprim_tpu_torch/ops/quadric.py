@@ -3,8 +3,10 @@
 Along a ray ``o + t d`` a primitive (rotation R, scales s, center c) has the
 Mahalanobis quadratic ``q(t) = a t^2 + 2 b t + c0`` with
 ``M = R diag(s)^-2 R^T``, ``a = d^T M d``, ``b = d^T M (o - c)``,
-``c0 = (o - c)^T M (o - c)``. Only what the exact integrator (models/rf.py)
-and the path tracer (models/prb.py) call is ported here.
+``c0 = (o - c)^T M (o - c)``. Ported: what the exact integrator
+(models/rf.py), the path tracer (models/prb.py) and the v1 tile compositor
+(:func:`prim_features` / :func:`ray_features`, rf_tiled ``backend='pallas'``)
+call.
 """
 
 from __future__ import annotations
@@ -113,3 +115,63 @@ def pair_coeffs_gathered(o, d, centers, scales, quats, ids) -> QuadricCoeffs:
         b = b + w * p
         c = c + p * p
     return QuadricCoeffs(a, b, c)
+
+
+def prim_features(centers, scales, quats) -> torch.Tensor:
+    """Primitives as a ``[10, C]`` feature matrix: rows (M11, M22, M33,
+    2 M12, 2 M13, 2 M23, (Mc)_x, (Mc)_y, (Mc)_z, c^T M c) with
+    ``M = R diag(s)^-2 R^T``. With :func:`ray_features` the coefficients are
+    three 10-term dot products: ``a = fa . P``, ``b = fb . P``, ``c = fc . P``.
+    Each sum is taken left to right; differentiable in all three inputs."""
+    rot = quaternion.to_rotation_matrix(quats)  # [C, 3, 3]
+    inv_s2 = 1.0 / (scales * scales)
+
+    def m(i, j):  # M_ij = sum_k R_ik inv_s2_k R_jk
+        return (
+            rot[:, i, 0] * inv_s2[:, 0] * rot[:, j, 0]
+            + rot[:, i, 1] * inv_s2[:, 1] * rot[:, j, 1]
+            + rot[:, i, 2] * inv_s2[:, 2] * rot[:, j, 2]
+        )
+
+    mm = [[m(i, j) for j in range(3)] for i in range(3)]
+    cx, cy, cz = centers[:, 0], centers[:, 1], centers[:, 2]
+    mc = [mm[i][0] * cx + mm[i][1] * cy + mm[i][2] * cz for i in range(3)]
+    cmc = cx * mc[0] + cy * mc[1] + cz * mc[2]
+    return torch.stack(
+        [
+            mm[0][0], mm[1][1], mm[2][2],
+            2.0 * mm[0][1], 2.0 * mm[0][2], 2.0 * mm[1][2],
+            mc[0], mc[1], mc[2], cmc,
+        ],
+        dim=0,
+    )
+
+
+def ray_features(o: torch.Tensor, d: torch.Tensor):
+    """Ray-side feature vectors (fa, fb, fc), each ``[R, 10]``, such that
+    with ``P = prim_features(...)``: ``a = fa . P`` (d^T M d),
+    ``b = fb . P`` (d^T M o - d^T M c), ``c = fc . P``
+    (o^T M o - 2 o^T M c + c^T M c)."""
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    zero = torch.zeros_like(ox)
+    one = torch.ones_like(ox)
+    fa = torch.stack(
+        [dx * dx, dy * dy, dz * dz, dx * dy, dx * dz, dy * dz, zero, zero, zero, zero],
+        dim=-1,
+    )
+    fb = torch.stack(
+        [
+            dx * ox, dy * oy, dz * oz,
+            0.5 * (dx * oy + dy * ox), 0.5 * (dx * oz + dz * ox),
+            0.5 * (dy * oz + dz * oy),
+            -dx, -dy, -dz, zero,
+        ],
+        dim=-1,
+    )
+    fc = torch.stack(
+        [ox * ox, oy * oy, oz * oz, ox * oy, ox * oz, oy * oz,
+         -2.0 * ox, -2.0 * oy, -2.0 * oz, one],
+        dim=-1,
+    )
+    return fa, fb, fc
