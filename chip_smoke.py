@@ -10,9 +10,9 @@ the hand-written CUDA compositor kernels on the way, in phases that each
 print one line:
 
 1. probe: the card, its power limit, TF32 off;
-2. build: nvcc builds the seven sources of csrc/ (composite3_fwd/_bwd,
-   ffwalk, composite_fwd/_bwd, composite2_fwd/_bwd) from this checkout, one
-   process each, started together;
+2. build: nvcc builds the eight sources of csrc/ (composite3_fwd/_bwd,
+   ffwalk, composite_fwd/_bwd, composite2_fwd/_bwd, clone) from this
+   checkout, one process each, started together;
 3. kernel: the forward kernel against its plain PyTorch version at the
    headline shapes (T=64 tiles, R=512 rays, S=2048 and 8192 columns, seg
    256, k=4, bf16 SH, compaction on and off), with CUDA-event timings;
@@ -71,6 +71,31 @@ composite2_fwd.cu, composite2_bwd.cu):
 The frames and steps are checked against their plain versions, not
 against a quality limit: v1 and v2 compute q = c - b^2 / a, which cancels
 at this scene's scale ratios.
+
+Then the per-stage profiler's path (volprim_tpu_torch.tools.profile_rf)
+with its DMA-floor probe (csrc/clone.cu), and the order band of the v3
+compositors:
+
+16. clone: the probe against its plain version at the profiler's
+    kernel-stage tile blocks (CLONE: 1024 tiles of 256 rays, 2048 columns,
+    12 bf16 SH rows) and at 4x the columns: every element equal, its time
+    beside its bytes bound and torch.sum over the same tensors, and the
+    4S / S time ratio, which must reach 1.5 (a probe whose reads were
+    optimised away would not grow);
+17. profile_rf: the profiler in-process at its defaults plus the stage
+    stops, the coarse cull, the probe and the segment statistics (every
+    stage line printed, each kernel of its path launched), then one frame
+    of its configuration (refine 0.125) with every compositor launch, base
+    and refine pass, replayed against the plain version, and its PSNR
+    against phase 5's exact subsample beside refine 0 (it must not drop);
+18. band_frame: bench.py's two order-band frames (BAND, 4096 and 8192
+    candidates, band 16): every forward launch replayed against the plain
+    version (ATOL / RTOL, KILL_FLIP; walked and live segments equal), the
+    median of 10 frames, peak memory, and PSNR against phase 5's exact
+    subsample, which must exceed the same frame's unbanded;
+19. band_train_step: phase 7's step with order_band 16, its forward and
+    backward launches replayed (the backward against the f64 yardstick,
+    compare_grads).
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -153,6 +178,11 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 # g_alpha, g_raw and g_q 9, the p, t*, a, b adjoints 31, the 13 rows 28,
 # SH 3 + 3k, the sum over rays 13 + 3k and log1p 2
 OPS_PAIR = 40
+# the order band: per hit its entry key (a subtraction, a max, a divide, a
+# square root and a subtraction, and the window's bookkeeping: 6), per pair
+# of hits within the band one comparison and two sums (corr of both), and
+# the backward again for the transposed band
+OPS_BAND_KEY, OPS_BAND_PAIR = 6, 3
 
 
 # The free-flight walk's bound counts f32 operations per interval the
@@ -187,6 +217,22 @@ V12 = dict(
 )
 # tiles per call of a plain version run in f64 (memory)
 TILE_CHUNK = 128
+
+# the profiler's DMA-floor probe at the profiler's kernel-stage tile blocks
+# (tools/profile_rf.py at its defaults: 1024 tiles of 256 rays, 2048
+# columns, 12 bf16 SH rows, segment 256)
+CLONE = dict(T=1024, R=256, S=2048, rows=12, seg=256)
+# the profiler's stages run in phase 17: its defaults and the rest
+PROFILER_STAGES = ("full,nokernel,cull,gather,kernel,in_cull,in_pack,in_gather_pf,"
+                   "in_gather,in_cull_nosel,cull_coarse,clone,segstats")
+# bench.py's order-band quality points (bench.py:956-980; BENCH_BAND_POINTS
+# "16:4096,16:8192"): one budget, compaction, cluster sort, band 16
+BAND_POINTS = (4096, 8192)
+BAND = dict(
+    max_depth=128, tile_pixels=256, segment=256, cluster_size=16, backend="fused",
+    early_exit=True, coarse_group=4, coarse_factor=8, super_group=4, refine_fraction=0.0,
+    refine_factor=4, kernel_compact=True, cluster_sort=True, order_band=16,
+)
 # f32 operations per (ray, column) pair that a v1 / v2 kernel walks: the
 # coefficients (v1: three 10-term dots, 57; v2: a 11, b 5), then q 3, clamp
 # 1, disc 2, t_near 5 and the hit test 2
@@ -276,22 +322,6 @@ def compare(got, want, n_rays: int) -> dict:
     }
 
 
-def column_keep(d8, pf):
-    """[T, S] columns whose bounding sphere meets the tile's ray cone: the
-    kernels' compaction mask, for counting the work they must do."""
-    ax0, ax1, ax2, ch, sh_ = (d8[:, i, 0:1] for i in range(3, 8))
-    vx, vy, vz, r = -pf[:, 9], -pf[:, 10], -pf[:, 11], pf[:, 14]
-    dist2 = vx * vx + vy * vy + vz * vz
-    a = vx * ax0 + vy * ax1 + vz * ax2
-    b2 = torch.clamp(dist2 - a * a, min=0.0)
-    ch2 = ch * ch
-    inside = (a > 0.0) & (b2 * ch2 <= (a * a) * (sh_ * sh_))
-    rhs = r + a * sh_
-    near = (rhs >= 0.0) & (b2 * ch2 <= rhs * rhs)
-    keep = (((inside | near) & (a + r > 1e-4)) | (dist2 <= r * r)) & (r >= 0.0)
-    return keep
-
-
 def device_profile(fn, out_dir: str, name: str, n: int = 2, stages: dict = None):
     """Device busy ms per call of fn(i) over n calls (torch.profiler's
     device-side rows: kernels and copies; the CPU-op rows repeat them),
@@ -341,37 +371,47 @@ def device_profile(fn, out_dir: str, name: str, n: int = 2, stages: dict = None)
 
 
 @torch.no_grad()
-def work(composite3, d8, pf, sh3, n_seg_t, seg, extent2, max_depth, sh_k, compact):
+def work(composite3, d8, pf, sh3, n_seg_t, seg, extent2, max_depth, sh_k, compact,
+         order_band=0):
     """What one compositor call on these inputs must do: live columns,
-    (ray, surviving column) pairs, hits under the cap, and the least time
-    of the forward and the backward on this card (ms, and what bounds it).
-    Input bytes count the live segments' columns once; outputs are
-    written whole."""
+    (ray, stream column) pairs, hits under the cap, hit pairs within the
+    order band, and the least time of the forward and the backward on this
+    card (ms, and what bounds it). Input bytes count the live segments'
+    columns once; outputs are written whole."""
     t, _, r = d8.shape
     s = pf.shape[2]
-    seg_id = torch.arange(s, device=d8.device) // seg
-    live = seg_id[None, :] < n_seg_t.clamp(max=s // seg)[:, None].long()  # [T, S]
-    keep = live & column_keep(d8, pf) if compact else live
-    pairs = int(keep.sum()) * r
-    d3, f6, _, _ = composite3._ray_terms(d8, sh_k, sh3.dtype)
-    count = torch.zeros((t, r, 1), device=d8.device)
-    hits = 0
-    for si in range(s // seg):
-        cols = pf[:, :, si * seg:(si + 1) * seg]
-        pr = composite3._segment_pairs(
-            cols, d3, f6, extent2 * 0.5, (si < n_seg_t.long())[:, None, None]
-        )
-        depth_ok, count = composite3._capped(pr[7], count, max_depth)
-        hits += int((pr[8] & depth_ok).sum())
+    lane = torch.arange(s, device=d8.device)
+    live = lane[None, :] // seg < torch.clamp(n_seg_t.long(), 0, s // seg)[:, None]
+    hits = band_pairs = stream_cols = 0
+    for t0 in range(0, t, TILE_CHUNK):  # memory: [tiles, R, seg] temporaries
+        c = slice(t0, t0 + TILE_CHUNK)
+        pf_s, _, nseg, _, inside = composite3._stream(d8[c], pf[c], sh3[c], n_seg_t[c], seg,
+                                                      compact)
+        stream_cols += int(inside.sum()) if compact else int(live[c].sum())
+        d3, f6, _, _ = composite3._ray_terms(d8[c], sh_k, sh3.dtype)
+        count = torch.zeros((pf_s.shape[0], r, 1), device=d8.device)
+        for si in range(int(nseg.max()) if nseg.numel() else 0):
+            pr = composite3._segment_pairs(
+                pf_s[:, :, si * seg:(si + 1) * seg], d3, f6, extent2 * 0.5,
+                (si < nseg)[:, None, None],
+            )
+            depth_ok, count = composite3._capped(pr[7], count, max_depth)
+            hm = pr[8] & depth_ok
+            hits += int(hm.sum())
+            for s_ in range(1, min(order_band, seg - 1) + 1):
+                band_pairs += int((hm[..., :-s_] & hm[..., s_:]).sum())
+    pairs = stream_cols * r
     n_live = int(live.sum())
     rays_in = t * 8 * r * 4 + t * 4
     cols_in = n_live * (16 * 4 + 3 * sh_k * 2)
     fwd_bytes = rays_in + cols_in + t * r * 4 * 4
     bwd_bytes = rays_in + cols_in + t * r * 4 * 4 + t * s * (16 * 4 + 3 * sh_k * 2)
-    out = dict(live_columns=n_live, pairs=pairs, hits=hits)
+    band_fwd = hits * OPS_BAND_KEY + band_pairs * OPS_BAND_PAIR if order_band else 0
+    band_bwd = hits * OPS_BAND_KEY + band_pairs * 2 * OPS_BAND_PAIR if order_band else 0
+    out = dict(live_columns=n_live, pairs=pairs, hits=hits, band_hit_pairs=band_pairs)
     for name, nbytes, ops in (
-        ("fwd", fwd_bytes, pairs * OPS_PAIR + hits * ops_hit_fwd(sh_k)),
-        ("bwd", bwd_bytes, pairs * OPS_PAIR + hits * ops_hit_bwd(sh_k)),
+        ("fwd", fwd_bytes, pairs * OPS_PAIR + hits * ops_hit_fwd(sh_k) + band_fwd),
+        ("bwd", bwd_bytes, pairs * OPS_PAIR + hits * ops_hit_bwd(sh_k) + band_bwd),
     ):
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
         out[f"{name}_bound_ms"] = max(t_bytes, t_ops)
@@ -490,10 +530,11 @@ def compare_grads12(got, plain, yard) -> dict:
 @torch.no_grad()
 def check_bwd(composite3, args, kw, compact, reps=10):
     """The backward kernel on ``args`` = (d8, pf, sh3, n_seg_t, g_l,
-    g_beta) against its plain version (f32, and f64 as the yardstick),
-    with CUDA-event times of both."""
+    g_beta) against its plain version (f32, and f64 as the yardstick; both
+    walk the kernel's stream), with CUDA-event times of both."""
     d8, pf, sh3, n_seg_t, g_l, g_beta = args
-    got = composite3.composite_tiles3_bwd(*args, compact=compact, **kw)
+    kw = dict(kw, compact=compact)
+    got = composite3.composite_tiles3_bwd(*args, **kw)
     plain = composite3.composite_tiles3_bwd_reference(*args, **kw)
     yard, _ = composite3.composite_tiles3_bwd_reference(
         d8.double(), pf.double(), sh3, n_seg_t, g_l, g_beta, **kw
@@ -501,7 +542,7 @@ def check_bwd(composite3, args, kw, compact, reps=10):
     torch.cuda.synchronize()
     cmp_ = compare_grads(got, plain, yard)
     del yard
-    ms = cuda_ms(lambda: composite3.composite_tiles3_bwd(*args, compact=compact, **kw), reps)
+    ms = cuda_ms(lambda: composite3.composite_tiles3_bwd(*args, **kw), reps)
     plain_ms = cuda_ms(
         lambda: composite3.composite_tiles3_bwd_reference(*args, **kw), 3, warmup=1
     )
@@ -706,6 +747,27 @@ def check_bwd12(api, tensors, cot, kw, reps=10) -> dict:
     return row
 
 
+def record_launches(module, name, counter, fn):
+    """Run fn() with module.name wrapped to record its argument tuples and
+    the launch count of ``counter`` set to 0 just before and read just
+    after: (fn's result, launches, recorded argument tuples)."""
+    recorded, launch = [], getattr(module, name)
+
+    def recording(*a):
+        recorded.append(tuple(x.detach() if torch.is_tensor(x) else x for x in a))
+        return launch(*a)
+
+    setattr(module, name, recording)
+    counter.launches = 0
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        launches = counter.launches
+        setattr(module, name, launch)
+    return out, launches, recorded
+
+
 def psnr_db(a, b) -> float:
     return -10.0 * math.log10(max(float(torch.mean((a - b) ** 2)), 1e-12))
 
@@ -725,20 +787,8 @@ def v12_frame(backend, name, scene, camera, exact, sel, fused_img, details, out=
         return rf_tiled.render_state(state, camera, cfg, None, spp=spp, seed=seed, jitter=jitter)
 
     # the counted run: counts set to 0 just before, read just after
-    recorded, launch = [], api.fwd_mod._launch
-
-    def recording(*a):
-        recorded.append(a)
-        return launch(*a)
-
-    api.fwd_mod._launch = recording
-    api.fwd_counter.launches = 0
-    try:
-        img = frame(1)
-        torch.cuda.synchronize()
-    finally:
-        launches = api.fwd_counter.launches
-        api.fwd_mod._launch = launch
+    img, launches, recorded = record_launches(api.fwd_mod, "_launch", api.fwd_counter,
+                                              lambda: frame(1))
     if launches != SPP or len(recorded) != SPP:
         fail(f"{name}: the compositor launched {launches} times ({len(recorded)} recorded), "
              f"expected {SPP} (one per sample)")
@@ -816,26 +866,11 @@ def v12_train_step(backend, name, camera, dev, details, out=None) -> dict:
         loss.backward()
         return loss.detach()
 
-    rec_f, rec_b = [], []
-    launch, launch_bwd = api.fwd_mod._launch, api.bwd_mod._launch_bwd
-
-    def rf_(*a):
-        rec_f.append(a)
-        return launch(*a)
-
-    def rb_(*a):
-        rec_b.append(a)
-        return launch_bwd(*a)
-
-    api.fwd_mod._launch, api.bwd_mod._launch_bwd = rf_, rb_
-    api.fwd_counter.launches = 0
-    api.bwd_counter.launches = 0
-    try:
-        loss0 = step(0)
-        torch.cuda.synchronize()
-    finally:
-        counts = (api.fwd_counter.launches, api.bwd_counter.launches)
-        api.fwd_mod._launch, api.bwd_mod._launch_bwd = launch, launch_bwd
+    (loss0, n_bwd, rec_b), n_fwd, rec_f = record_launches(
+        api.fwd_mod, "_launch", api.fwd_counter,
+        lambda: record_launches(api.bwd_mod, "_launch_bwd", api.bwd_counter, lambda: step(0)),
+    )
+    counts = (n_fwd, n_bwd)
     if counts != (1, 1) or (len(rec_f), len(rec_b)) != (1, 1):
         fail(f"{name}: the step launched (forward, backward) {counts} times, expected (1, 1)")
     grad_max = {}
@@ -853,7 +888,7 @@ def v12_train_step(backend, name, camera, dev, details, out=None) -> dict:
     if out:
         busy = device_profile(lambda i: step(10 + i), out, f"chip_smoke_{name}_profile.txt")
     del params, base
-    a = [x.detach() if torch.is_tensor(x) else x for x in rec_b[0]]
+    a = list(rec_b[0])
     del rec_f, rec_b
     tensors, kw = api.split(a, n_extra=2)
     tensors, cot = tensors[:-2], tensors[-2:]
@@ -892,6 +927,263 @@ def v12_train_step(backend, name, camera, dev, details, out=None) -> dict:
     )
 
 
+@torch.no_grad()
+def check_fwd3(composite3, a, reps=10) -> dict:
+    """A recorded ``composite3._launch`` argument tuple replayed through the
+    wrapper against the plain version (in TILE_CHUNK tiles: memory), with
+    both times: L and beta within ATOL / RTOL (KILL_FLIP), the walked and
+    live counts equal."""
+    d8, pf, sh3, n_seg_t = a[:4]
+    kw = dict(zip(("seg", "extent2", "max_depth", "beta_kill", "sh_k", "compact",
+                   "order_band"), a[4:]))
+    got = composite3.forward3(d8, pf, sh3, n_seg_t, **kw)
+    want = [torch.cat(x) for x in zip(*(
+        composite3._forward3_reference(d8[c], pf[c], sh3[c], n_seg_t[c], *a[4:])
+        for c in (slice(t0, t0 + TILE_CHUNK) for t0 in range(0, d8.shape[0], TILE_CHUNK))
+    ))]
+    torch.cuda.synchronize()
+    n_rays = d8.shape[0] * d8.shape[2]
+    row = dict(tiles=int(d8.shape[0]), rays=int(d8.shape[2]), S=int(pf.shape[2]),
+               compact=kw["compact"], order_band=kw["order_band"],
+               L=compare(got[0], want[0], n_rays), beta=compare(got[1], want[1], n_rays),
+               walked_equal=bool(torch.equal(got[2], want[2].to(got[2].dtype))),
+               live_equal=bool(torch.equal(got[3], want[3].to(got[3].dtype))),
+               walked_mean=float(got[2].float().mean()), live_mean=float(got[3].float().mean()))
+    row["ok"] = row["L"]["ok"] and row["beta"]["ok"] and row["walked_equal"] and row["live_equal"]
+    del got, want
+    row["ms"] = cuda_ms(lambda: composite3.forward3(d8, pf, sh3, n_seg_t, **kw), reps)
+    row["plain_ms"] = cuda_ms(lambda: composite3._forward3_reference(d8, pf, sh3, n_seg_t, *a[4:]),
+                              2, warmup=1)
+    return row
+
+
+@torch.no_grad()
+def clone_check(clone, dev, details) -> dict:
+    """Phase 16: the profiler's DMA-floor probe against its plain version
+    at the profiler's kernel-stage tile blocks (CLONE) and at 4x their
+    columns: every element equal, the time beside the bytes bound, the
+    4S / S time ratio (a probe that skipped its reads would not grow), and
+    torch.sum over the same tensors for scale."""
+    t, r, s, rows, seg = (CLONE[k] for k in ("T", "R", "S", "rows", "seg"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    ut = torch.triu(torch.ones((seg, seg), device=dev))
+    out = {}
+    for s_ in (s, 4 * s):
+        args = (
+            torch.randint(0, s_ // seg + 1, (t,), generator=gen, device=dev, dtype=torch.int32),
+            torch.randn((t, 8, r), generator=gen, device=dev),
+            torch.randn((t, 16, s_), generator=gen, device=dev),
+            torch.randn((t, rows, s_), generator=gen, device=dev).to(torch.bfloat16),
+            ut,
+        )
+        got, want = clone.clone(*args), clone.clone_reference(*args)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        err = float((got - want).abs().max())
+        del got, want
+        nbytes = t * (8 * r * 4 + 16 * s_ * 4 + rows * s_ * 2) + t * 4 + seg * seg * 4 + t * r * 32
+        row = dict(T=t, R=r, S=s_, sh_rows=rows, elements_differing=differ, max_abs_err=err,
+                   ms=cuda_ms(lambda: clone.clone(*args), 20),
+                   plain_ms=cuda_ms(lambda: clone.clone_reference(*args), 20),
+                   torch_sum_ms=cuda_ms(lambda: [x.sum() for x in args[1:4]], 20),
+                   bytes=nbytes, bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes")
+        out[s_] = row
+        phase("clone_kernel", **row)
+        if differ:
+            fail(f"clone differs from its plain version in {differ} elements at S={s_}")
+    ratio = out[4 * s]["ms"] / out[s]["ms"]
+    phase("clone", ratio_4s_over_s=ratio, bound_ratio=out[4 * s]["bound_ms"] / out[s]["bound_ms"])
+    details["clone"] = dict(rows=list(out.values()), ratio_4s_over_s=ratio)
+    if ratio < 1.5:
+        fail(f"clone at 4S took {ratio:.2f}x its time at S (under 1.5x): its reads are not timed")
+    return dict(out[s], ratio_4s_over_s=ratio)
+
+
+def profiler_phase(composite3, clone, rf_tiled, scene, camera, exact, sel, details) -> dict:
+    """Phase 17: the ported profiler in-process at its defaults plus the
+    stage stops, the coarse cull, the probe and the segment statistics
+    (counts set to 0 just before, read just after); then one frame of its
+    configuration (refine 0.125) with every compositor launch, base and
+    refine pass, replayed against the plain version, and its PSNR against
+    phase 5's exact subsample beside the same configuration at refine 0."""
+    from volprim_tpu_torch.tools import profile_rf
+
+    t_phase = time.perf_counter()
+    composite3.composite_tiles3.launches = 0
+    clone.clone.launches = 0
+    results = profile_rf.main(["--reps", "3", "--stages", PROFILER_STAGES])
+    torch.cuda.synchronize()
+    launches = dict(composite3=composite3.composite_tiles3.launches,
+                    clone=clone.clone.launches)
+    want = [st for st in PROFILER_STAGES.split(",") if st != "segstats"]
+    if sorted(results) != sorted(want) or not all(math.isfinite(v) for v in results.values()):
+        fail(f"profile_rf printed {sorted(results)}, expected {sorted(want)}, all finite")
+    if not (launches["composite3"] > 0 and launches["clone"] > 0):
+        fail(f"the profiler's run launched {launches}: a kernel of its path never ran")
+    phase("profile_rf", stage_ms=results, launches=launches)
+
+    cfg = profile_rf.config(profile_rf._parser().parse_args([]))
+    state = rf_tiled.build_state(scene, cfg)
+    img, n_launch, recorded = record_launches(
+        composite3, "_launch", composite3.composite_tiles3,
+        lambda: rf_tiled.render_state(state, camera, cfg, None, spp=SPP, seed=1),
+    )
+    if n_launch != len(recorded) or n_launch < 2 or not bool(torch.isfinite(img).all()):
+        fail(f"the profiler's frame launched the compositor {n_launch} times "
+             "(a base and a refine pass expected) or is not finite")
+    rows = []
+    for a in recorded:
+        row = check_fwd3(composite3, a)
+        rows.append(row)
+        phase("kernel_on_profiler_frame_inputs", **row)
+    psnr = {}
+    for frac in (cfg.refine_fraction, 0.0):
+        c = dataclasses.replace(cfg, refine_fraction=frac)
+        st = state if frac else rf_tiled.build_state(scene, c)
+        img1 = rf_tiled.render_state(st, camera, c, None, spp=1, seed=0, jitter=False)
+        psnr[frac] = psnr_db(img1.reshape(-1, 3)[sel], exact)
+    phase("profiler_frame", launches=n_launch, refine_fraction=cfg.refine_fraction,
+          psnr_vs_exact_db=psnr[cfg.refine_fraction], psnr_vs_exact_db_refine_0=psnr[0.0],
+          seconds=round(time.perf_counter() - t_phase, 2))
+    details["profile_rf"] = dict(stage_ms=results, launches=launches, frame_launches=rows,
+                                 psnr=psnr)
+    if not all(r_["ok"] for r_ in rows):
+        fail("the compositor disagrees with its plain version on the profiler frame's inputs")
+    if not psnr[cfg.refine_fraction] >= psnr[0.0]:
+        fail(f"refinement lowered the PSNR vs exact: {psnr}")
+    return dict(launches=launches, rows=rows)
+
+
+def band_frames(composite3, rf_tiled, scene, camera, exact, sel, details) -> list:
+    """Phase 18: bench.py's two order-band frames (BAND at 4096 and 8192
+    candidates): the counted frame, every forward launch replayed against
+    the plain version, the median of 10 frames, peak memory, and PSNR
+    against phase 5's exact subsample beside the same frame unbanded."""
+    out = []
+    for mc in BAND_POINTS:
+        t_phase = time.perf_counter()
+        cfg = rf_tiled.RFTiledConfig(max_candidates=mc, **BAND)
+        state = rf_tiled.build_state(scene, cfg)
+
+        def frame(seed, spp=SPP, jitter=True, c=cfg, st=state):
+            return rf_tiled.render_state(st, camera, c, None, spp=spp, seed=seed, jitter=jitter)
+
+        img, launches, recorded = record_launches(
+            composite3, "_launch", composite3.composite_tiles3, lambda: frame(1))
+        if launches != len(recorded) or not launches:
+            fail(f"band frame mc={mc}: the compositor launched {launches} times")
+        if tuple(img.shape) != (WIDTH, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+            fail(f"band frame mc={mc}: not a finite [{WIDTH}, {WIDTH}, 3] image")
+        torch.cuda.reset_peak_memory_stats()
+        seeds = iter(range(100, 200))
+        times = cuda_times(lambda: frame(next(seeds)), 10)
+        frame_ms = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        c0 = dataclasses.replace(cfg, order_band=0)
+        psnr_band = psnr_db(frame(0, 1, False).reshape(-1, 3)[sel], exact)
+        psnr_0 = psnr_db(rf_tiled.render_state(state, camera, c0, None, spp=1, seed=0,
+                                               jitter=False).reshape(-1, 3)[sel], exact)
+        rows = []
+        for a in recorded:
+            row = check_fwd3(composite3, a)
+            row.update(work(composite3, *a[:4], a[4], a[5], a[6], a[8], a[9], a[10]))
+            rows.append(row)
+            phase("kernel_on_band_frame_inputs", max_candidates=mc, **row)
+        res = dict(
+            max_candidates=mc, order_band=cfg.order_band, launches=launches,
+            frame_ms=frame_ms, frame_ms_min=times[0], frame_ms_max=times[-1],
+            mrays_per_s=WIDTH * WIDTH * SPP / (frame_ms / 1e3) / 1e6, peak_mem_gib=peak,
+            psnr_vs_exact_db=psnr_band, psnr_vs_exact_db_band_0=psnr_0,
+            kernel_ms=sum(r_["ms"] for r_ in rows), plain_ms=sum(r_["plain_ms"] for r_ in rows),
+            bound_ms=sum(r_["fwd_bound_ms"] for r_ in rows),
+            bound_by=max(rows, key=lambda r_: r_["fwd_bound_ms"])["fwd_bound_by"],
+            max_abs_err=max(r_[x]["max_abs"] for r_ in rows for x in ("L", "beta")),
+            rays_outside_tol=sum(r_[x]["rays_outside_tol"] for r_ in rows for x in ("L", "beta")),
+            seconds=round(time.perf_counter() - t_phase, 2),
+        )
+        phase("band_frame", **res)
+        details[f"band_frame_{mc}"] = dict(res, times=times, launches=rows)
+        out.append(res)
+        if not all(r_["ok"] for r_ in rows):
+            fail(f"band frame mc={mc}: the forward kernel disagrees with its plain version")
+        if not psnr_band > psnr_0:
+            fail(f"band frame mc={mc}: order_band {cfg.order_band} did not raise the PSNR vs "
+                 f"exact ({psnr_band:.3f} vs {psnr_0:.3f} dB unbanded)")
+        del state, recorded
+    return out
+
+
+def band_train_step(composite3, camera, dev, details) -> dict:
+    """Phase 19: phase 7's train step with order_band 16: launch counts,
+    finite nonzero gradients, step time, then its forward and backward
+    launches' own inputs replayed against the plain versions (the backward
+    held to the f64 yardstick by compare_grads)."""
+    from volprim_tpu_torch import interop, train
+    from volprim_tpu_torch.models import rf_tiled
+    from volprim_tpu_torch.scene import synthetic
+
+    t_phase = time.perf_counter()
+    cfg = rf_tiled.RFTiledConfig(**TRAIN, order_band=16)
+    base = synthetic.make_scene(N_PRIMS, device=dev)
+    params = {
+        "centers": base.centers, "scales": base.scales, "quats": base.quats,
+        "opacities": base.attrs["opacities"], "sh_coeffs": base.attrs["sh_coeffs"],
+    }
+    params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+
+    def step(seed):
+        for p in params.values():
+            p.grad = None
+        img = train.render_cameras(train.to_scene(params, base), [camera], cfg, spp=1,
+                                   seed=seed)
+        loss = torch.mean(torch.abs(img))  # L1 against a zero image (bench.py)
+        loss.backward()
+        return loss.detach()
+
+    (loss0, n_bwd, rec_b), n_fwd, rec_f = record_launches(
+        composite3, "_launch", composite3.composite_tiles3,
+        lambda: record_launches(composite3, "_launch_bwd", composite3.composite_tiles3_bwd,
+                                lambda: step(0)),
+    )
+    if (n_fwd, n_bwd) != (1, 1) or (len(rec_f), len(rec_b)) != (1, 1):
+        fail(f"the band train step launched (forward, backward) {(n_fwd, n_bwd)} times")
+    grad_max = {}
+    for k in interop.TRAIN_KEYS:
+        g = params[k].grad
+        if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0):
+            fail(f"band train step: the gradient of {k} is missing, not finite or all zero")
+        grad_max[k] = float(g.abs().max())
+    torch.cuda.reset_peak_memory_stats()
+    seeds = iter(range(1, 100))
+    times = cuda_times(lambda: step(next(seeds)), 5, warmup=1)
+    step_ms = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, base
+    f_row = check_fwd3(composite3, rec_f[0])
+    phase("fwd_kernel_on_band_step_inputs", **f_row)
+    d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth, beta_kill, sh_k, compact, band = (
+        rec_b[0])
+    del rec_f, rec_b
+    bkw = dict(seg=seg, extent2=extent2, max_depth=max_depth, beta_kill=beta_kill, sh_k=sh_k,
+               order_band=band)
+    w = work(composite3, d8, pf, sh3, n_seg_t, seg, extent2, max_depth, sh_k, compact, band)
+    cmp_, bwd_ms, bwd_plain_ms = check_bwd(composite3, (d8, pf, sh3, n_seg_t, g_l, g_beta),
+                                           bkw, compact)
+    rows = cmp_["gpf"].pop("rows")
+    res = dict(
+        launches_fwd=n_fwd, launches_bwd=n_bwd, order_band=band, loss=float(loss0),
+        step_ms=step_ms, step_ms_min=times[0], step_ms_max=times[-1], peak_mem_gib=peak,
+        grad_max_abs=grad_max, fwd_kernel_ms=f_row["ms"], bwd=cmp_, ms=bwd_ms,
+        plain_ms=bwd_plain_ms, seconds=round(time.perf_counter() - t_phase, 2), **w,
+    )
+    phase("band_train_step", **res)
+    details["band_train_step"] = dict(res, times=times, bwd_rows=rows, fwd=f_row)
+    if not (f_row["ok"] and cmp_["ok"]):
+        fail("band train step: a kernel disagrees with its plain version on the step's inputs")
+    return dict(res, fwd=f_row)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="directory for details and a profiler table")
@@ -900,7 +1192,7 @@ def main() -> None:
         fail("no CUDA card (torch.cuda.is_available() is False); the port's "
              "kernels have no CPU mode here")
 
-    from volprim_tpu_torch.kernels import _build, composite3, ffwalk
+    from volprim_tpu_torch.kernels import _build, clone, composite3, ffwalk
     from volprim_tpu_torch.models import prb, render, rf, rf_tiled
     from volprim_tpu_torch.ops import envmap
     from volprim_tpu_torch.scene import CameraSpecs, generate_rays, look_at, synthetic
@@ -917,18 +1209,19 @@ def main() -> None:
     print(smi_line, flush=True)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("TF32 is on; the quadric math must stay full f32")
-    phase(
-        "probe", device=torch.cuda.get_device_name(0),
+    details["probe"] = dict(
+        device=torch.cuda.get_device_name(0),
         capability=list(torch.cuda.get_device_capability(0)),
         count=torch.cuda.device_count(), nvidia_smi=smi_line,
         torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0],
     )
+    phase("probe", **details["probe"])
 
     # ---- 2. build: one nvcc per source, all started together ------------
     t0 = time.perf_counter()
     names = ("composite3_fwd", "composite3_bwd", "ffwalk", "composite_fwd",
-             "composite_bwd", "composite2_fwd", "composite2_bwd")
+             "composite_bwd", "composite2_fwd", "composite2_bwd", "clone")
     _build.build(*names)
     for name in names:
         _build.load(name)
@@ -939,15 +1232,16 @@ def main() -> None:
                  if "registers" in ln or "spill" in ln]
         phase("build", kernel=name, seconds=seconds,
               nvcc_seconds=round(info.get("seconds", 0.0), 2), ptxas=ptxas)
+        details.setdefault("build", {})[name] = dict(seconds=seconds, ptxas=ptxas)
 
     # ---- 3. kernel vs plain version at the headline shapes ---------------
     checks = []
     kw = dict(seg=256, extent2=9.0, max_depth=128, beta_kill=0.01, sh_k=4)
     for s in (2048, 8192):
         inputs = composite3.synthetic_tiles(64, 512, s, 256, 4, seed=s, device=dev)
-        want = composite3.composite_tiles3_reference(*inputs, **kw)
         plain_ms = cuda_ms(lambda: composite3.composite_tiles3_reference(*inputs, **kw), 20)
         for compact in (False, True):
+            want = composite3.composite_tiles3_reference(*inputs, compact=compact, **kw)
             got = composite3.composite_tiles3(*inputs, compact=compact, **kw)
             torch.cuda.synchronize()
             cl = compare(got[0], want[0], 64 * 512)
@@ -979,21 +1273,9 @@ def main() -> None:
     # the counted run: launch counts reset just before, read just after;
     # the launch arguments are recorded on the way (the recorder wraps the
     # launch helper, so the count stays on composite_tiles3)
-    recorded = []
-    launch = composite3._launch
-
-    def recording(*a):
-        recorded.append(a)
-        return launch(*a)
-
-    composite3._launch = recording
-    composite3.composite_tiles3.launches = 0
-    try:
-        img = frame(seed=1)
-        torch.cuda.synchronize()
-    finally:
-        launches = composite3.composite_tiles3.launches
-        composite3._launch = launch
+    img, launches, recorded = record_launches(composite3, "_launch",
+                                              composite3.composite_tiles3,
+                                              lambda: frame(seed=1))
     n_classes = len(cfg.budget_classes)
     fold = max(1, min(SPP, 512 // cfg.tile_pixels))
     while SPP % fold:
@@ -1009,22 +1291,23 @@ def main() -> None:
     frame_ms = float(np.median(frame_times))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     mrays = WIDTH * WIDTH * SPP / (frame_ms / 1e3) / 1e6
-    phase(
-        "main_path", launches=launches, frame_ms=frame_ms,
+    details["main_path"] = dict(
+        launches=launches, frame_ms=frame_ms,
         frame_ms_min=frame_times[0], frame_ms_max=frame_times[-1], mrays_per_s=mrays,
         peak_mem_gib=peak_gib, mean_radiance=float(img.mean()),
         build_state_ms=build_ms, setup_s=round(setup_s, 2),
         class_tiles=[int(a[0].shape[0]) for a in recorded],
         class_columns=[int(a[1].shape[2]) for a in recorded],
     )
+    phase("main_path", **details["main_path"])
 
     # the kernel against its plain version on the frame's own inputs
     path_checks, path_ms, path_plain_ms = [], 0.0, 0.0
-    for d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k, compact in recorded:
+    for d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k, compact, _ in recorded:
         inputs = (d8, pf, sh3, n_seg_t)
         kw = dict(seg=seg, extent2=extent2, max_depth=max_depth,
                   beta_kill=beta_kill, sh_k=sh_k)
-        want = composite3.composite_tiles3_reference(*inputs, **kw)
+        want = composite3.composite_tiles3_reference(*inputs, compact=compact, **kw)
         got = composite3.composite_tiles3(*inputs, compact=compact, **kw)
         torch.cuda.synchronize()
         n_rays = d8.shape[0] * d8.shape[2]
@@ -1064,11 +1347,12 @@ def main() -> None:
         fail("the exact-order reference is not finite")
     mse = float(torch.mean((tiled - exact) ** 2))
     psnr = -10.0 * math.log10(max(mse, 1e-12))
-    phase("quality", psnr_vs_exact_db=psnr, pixels=4096, exact_s=round(exact_s, 2),
-          mean_tiled=float(tiled.mean()), mean_exact=float(exact.mean()))
+    details["quality"] = dict(psnr_vs_exact_db=psnr, pixels=4096, exact_s=round(exact_s, 2),
+                              mean_tiled=float(tiled.mean()), mean_exact=float(exact.mean()))
+    phase("quality", **details["quality"])
     if not psnr > 20.0:
         fail(f"PSNR vs the exact-order integrator is {psnr:.2f} dB")
-    fwd_work = [work(composite3, *a[:4], a[4], a[5], a[6], a[8], a[9]) for a in recorded]
+    fwd_work = [work(composite3, *a[:4], a[4], a[5], a[6], a[8], a[9], a[10]) for a in recorded]
     phase("frame_kernel_work", classes=fwd_work)
     details["frame_kernel_work"] = fwd_work
 
@@ -1110,23 +1394,11 @@ def main() -> None:
         loss.backward()
         return loss.detach()
 
-    recorded_bwd = []
-    launch_bwd = composite3._launch_bwd
-
-    def recording_bwd(*a):
-        recorded_bwd.append(a)
-        return launch_bwd(*a)
-
-    composite3._launch_bwd = recording_bwd
     composite3.composite_tiles3.launches = 0
-    composite3.composite_tiles3_bwd.launches = 0
-    try:
-        loss0 = bench_step(0)
-        torch.cuda.synchronize()
-    finally:
-        step_launches = (composite3.composite_tiles3.launches,
-                         composite3.composite_tiles3_bwd.launches)
-        composite3._launch_bwd = launch_bwd
+    loss0, n_bwd, recorded_bwd = record_launches(composite3, "_launch_bwd",
+                                                 composite3.composite_tiles3_bwd,
+                                                 lambda: bench_step(0))
+    step_launches = (composite3.composite_tiles3.launches, n_bwd)
     if step_launches != (1, 1) or len(recorded_bwd) != 1:
         fail(f"the train step launched (forward, backward) {step_launches} times, "
              "expected (1, 1)")
@@ -1139,9 +1411,8 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     step_times = cuda_times(lambda: bench_step(1), 5, warmup=1)
     step_peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth, beta_kill, sh_k, compact = (
-        x.detach() if torch.is_tensor(x) else x for x in recorded_bwd[0]
-    )
+    d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth, beta_kill, sh_k, compact, _ = (
+        recorded_bwd[0])
     bkw = dict(seg=seg, extent2=extent2, max_depth=max_depth, beta_kill=beta_kill,
                sh_k=sh_k)
     train_work = work(composite3, d8, pf, sh3, n_seg_t, seg, extent2, max_depth, sh_k,
@@ -1149,7 +1420,7 @@ def main() -> None:
     # the forward kernel against its plain version on the step's inputs
     # (256-ray tiles: its only check at this block size)
     fwd_inputs = (d8, pf, sh3, n_seg_t)
-    want = composite3.composite_tiles3_reference(*fwd_inputs, **bkw)
+    want = composite3.composite_tiles3_reference(*fwd_inputs, compact=compact, **bkw)
     got = composite3.composite_tiles3(*fwd_inputs, compact=compact, **bkw)
     torch.cuda.synchronize()
     n_rays = d8.shape[0] * d8.shape[2]
@@ -1420,6 +1691,12 @@ def main() -> None:
                                            details, args.out)
         v12[f"{tag}_fwd"]["fwd_step_err"] = v12[f"{tag}_bwd"]["fwd_max_abs_err"]
 
+    # ---- 16-19. the profiler's path, its probe, the order band ------------
+    clone_row = clone_check(clone, dev, details)
+    prof = profiler_phase(composite3, clone, rf_tiled, scene, camera, exact, sel, details)
+    band = band_frames(composite3, rf_tiled, scene, camera, exact, sel, details)
+    band_step = band_train_step(composite3, camera, dev, details)
+
     if args.out:
         busy_ms, split = device_profile(
             lambda i: prb_frame(700 + i), args.out, "chip_smoke_prb_profile.txt",
@@ -1444,11 +1721,13 @@ def main() -> None:
             json.dump(details, f, indent=1)
 
     worst = max(
-        c[x]["max_abs"] for c in checks + path_checks + [fwd_step_row]
-        for x in ("L", "beta")
+        [c[x]["max_abs"] for c in checks + path_checks + [fwd_step_row]
+         for x in ("L", "beta")]
+        + [b["max_abs_err"] for b in band]
+        + [r_[x]["max_abs"] for r_ in prof["rows"] + [band_step["fwd"]] for x in ("L", "beta")]
     )
     worst_bwd = max(
-        c[x]["max_abs"] for c in bwd_checks + [details["train_step"]["bwd"]]
+        c[x]["max_abs"] for c in bwd_checks + [details["train_step"]["bwd"], band_step["bwd"]]
         for x in ("gpf", "gsh")
     )
     fwd_bound = sum(w["fwd_bound_ms"] for w in fwd_work)
@@ -1468,6 +1747,12 @@ def main() -> None:
         "ms_train_step": fwd_train_ms,
         "plain_ms_train_step": fwd_train_plain_ms,
         "bound_ms_train_step": train_work["fwd_bound_ms"],
+        "launches_profiler_path": prof["launches"]["composite3"],
+        "launches_band": sum(b["launches"] for b in band),
+        "ms_band": sum(b["kernel_ms"] for b in band),
+        "plain_ms_band": sum(b["plain_ms"] for b in band),
+        "bound_ms_band": sum(b["bound_ms"] for b in band),
+        "bound_by_band": max(band, key=lambda b: b["bound_ms"])["bound_by"],
     }, {
         "name": "composite3_bwd",
         "route": "cuda",
@@ -1480,6 +1765,11 @@ def main() -> None:
         "bound_ms": train_work["bwd_bound_ms"],
         "bound_by": train_work["bwd_bound_by"],
         "library_ms": None,
+        "launches_band": band_step["launches_bwd"],
+        "ms_band": band_step["ms"],
+        "plain_ms_band": band_step["plain_ms"],
+        "bound_ms_band": band_step["bwd_bound_ms"],
+        "bound_by_band": band_step["bwd_bound_by"],
     }, {
         "name": "ffwalk",
         "route": "cuda",
@@ -1509,7 +1799,20 @@ def main() -> None:
         ("composite_bwd", "v1_bwd", "volprim_tpu/pallas_kernels/composite_vjp.py:48"),
         ("composite2_fwd", "v2_fwd", "volprim_tpu/pallas_kernels/composite2.py:105"),
         ("composite2_bwd", "v2_bwd", "volprim_tpu/pallas_kernels/composite2.py:159"),
-    )]}), flush=True)
+    )] + [{
+        "name": "clone",
+        "route": "cuda",
+        "source": "volprim_tpu_torch/csrc/clone.cu",
+        "replaces": "tools/profile_rf.py:405",
+        "launches": prof["launches"]["clone"],
+        "max_abs_err": clone_row["max_abs_err"],
+        "ms": clone_row["ms"],
+        "plain_ms": clone_row["plain_ms"],
+        "bound_ms": clone_row["bound_ms"],
+        "bound_by": clone_row["bound_by"],
+        "library_ms": None,
+        "ratio_4s_over_s": clone_row["ratio_4s_over_s"],
+    }]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -96,7 +96,8 @@ def test_wrapper_takes_plain_version_on_cpu_and_refuses_grad():
     d8, pf, sh3, n_seg_t = tcomp.synthetic_tiles(2, 32, 256, 128, 4, seed=7)
     before = (tcomp.composite_tiles3.launches, tcomp.composite_tiles3_bwd.launches)
     got = tcomp.composite_tiles3(d8, pf, sh3, n_seg_t, seg=128, sh_k=4, compact=True)
-    want = tcomp.composite_tiles3_reference(d8, pf, sh3, n_seg_t, seg=128, sh_k=4)
+    want = tcomp.composite_tiles3_reference(d8, pf, sh3, n_seg_t, seg=128, sh_k=4,
+                                            compact=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     d8_leaf = d8.clone().requires_grad_(True)

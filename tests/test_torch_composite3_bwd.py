@@ -109,8 +109,11 @@ def test_backward_matches_jax_vjp(compact, sh_k):
         d8, pf_leaf, sh_leaf, n_seg_t, sh_k=sh_k, compact=compact, **KW
     )
     (torch.sum(l * g_l) + torch.sum(b * g_beta)).backward()
-    assert torch.equal(pf_leaf.grad, gpf_b)
-    assert torch.equal(sh_leaf.grad, gsh_b)
+    gpf_c, gsh_c = tcomp.composite_tiles3_bwd_reference(
+        d8, pf, sh3, n_seg_t, g_l, g_beta, sh_k=sh_k, compact=compact, **KW
+    )
+    assert torch.equal(pf_leaf.grad, gpf_c)
+    assert torch.equal(sh_leaf.grad, gsh_c)
 
 
 @pytest.mark.parametrize("sh_k", [1, 4])

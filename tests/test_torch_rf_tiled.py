@@ -139,9 +139,9 @@ def test_exact_radiance_matches_jax():
 
 @pytest.mark.parametrize(
     "override",
-    [dict(backend="xla"), dict(refine_fraction=0.1), dict(order_band=8),
-     dict(band_classes=(0, 8)), dict(prim_resort=True),
-     dict(backend="pallas", use_clusters=False), dict(backend="pallas", order_band=8)],
+    [dict(backend="xla"), dict(use_clusters=False), dict(prim_resort="entry"),
+     dict(prim_resort="cluster"), dict(prim_resort=True),
+     dict(backend="pallas", use_clusters=False), dict(backend="pallas2", use_clusters=False)],
 )
 def test_unported_options_raise(override):
     cfg = trt.RFTiledConfig(**{**HEADLINE_AT_TEST_SIZE, **override})

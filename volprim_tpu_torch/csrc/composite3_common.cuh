@@ -170,12 +170,12 @@ __device__ __forceinline__ void emission(const float* basis,
 
 // Does the column's bounding sphere meet the tile's ray cone? The squared
 // point-cone distance test of the TPU kernel's _column_mask (multiplies and
-// compares only); conservative, and radius < 0 (neutral slots) never passes.
-__device__ __forceinline__ bool column_mask(const float* col, float ax0,
-                                            float ax1, float ax2, float ch,
-                                            float sh) {
-  const float vx = -col[9], vy = -col[10], vz = -col[11];  // c - o
-  const float r = col[kRadiusRow];
+// compares only) on the column's w = o - c (rows 9-11) and radius (row 14);
+// conservative, and radius < 0 (neutral slots) never passes.
+__device__ __forceinline__ bool column_mask(float wx, float wy, float wz,
+                                            float r, float ax0, float ax1,
+                                            float ax2, float ch, float sh) {
+  const float vx = -wx, vy = -wy, vz = -wz;  // c - o
   const float dist2 = vx * vx + vy * vy + vz * vz;
   const float a = vx * ax0 + vy * ax1 + vz * ax2;  // depth along the axis
   const float b2 = fmaxf(dist2 - a * a, 0.0f);     // squared axis distance
@@ -188,40 +188,37 @@ __device__ __forceinline__ bool column_mask(const float* col, float ax0,
   return (((inside || near_surf) && in_front) || contains) && (r >= 0.0f);
 }
 
-// Copies segment columns [col0, col0 + seg) of one tile into shared memory
-// as [seg][16] f32 records and, when s_sh is given, [seg][3K] bf16 SH.
-template <int K>
-__device__ __forceinline__ void stage_segment(
-    const float* __restrict__ pft, const __nv_bfloat16* __restrict__ sht,
-    float* s_pf, __nv_bfloat16* s_sh, int S, int col0, int seg, int tid,
-    int nthreads) {
-  for (int i = tid; i < kFeat * seg; i += nthreads) {
-    const int row = i / seg, c = i - row * seg;
-    s_pf[c * kFeat + row] = pft[static_cast<size_t>(row) * S + col0 + c];
-  }
-  if (s_sh == nullptr) return;
-  for (int i = tid; i < 3 * K * seg; i += nthreads) {
-    const int row = i / seg, c = i - row * seg;
-    s_sh[c * 3 * K + row] = sht[static_cast<size_t>(row) * S + col0 + c];
-  }
+// The tile's bounding cone: unit axis, cosine and sine of the half-angle
+// (d8 rows 3-7, the same value for every ray).
+struct Cone {
+  float ax0, ax1, ax2, ch, sh;
+};
+
+__device__ __forceinline__ Cone tile_cone(const float* d8t, int R) {
+  return Cone{d8t[3 * R], d8t[4 * R], d8t[5 * R], d8t[6 * R], d8t[7 * R]};
 }
 
-// Writes the indices of the staged columns that pass column_mask into
-// s_idx, in stream order, and returns their count (block-uniform). A
-// block-wide ballot scan: one thread per column, one count per warp in
-// s_warp. Every thread of the block must call it, after the segment is
-// staged and a barrier.
-__device__ __forceinline__ int compact_segment(const float* s_pf, int* s_idx,
-                                               int* s_warp, int seg,
-                                               float ax0, float ax1,
-                                               float ax2, float ch, float sh) {
+// Compaction: writes the tile's columns [0, ncols) that pass column_mask to
+// idx (device memory), in stream order, and returns their count
+// (block-uniform). The survivors form one packed stream, cut into segments
+// of seg as the TPU kernel's _compact_phase packs them, so a segment's
+// lanes are the ones the order band sees. A block-wide ballot scan over the
+// columns' rows 9-11 and 14, one count per warp in s_warp. Every thread of
+// the block must call it; it ends with a barrier, after which idx is
+// complete for the whole block.
+__device__ __forceinline__ int compact_stream(const float* __restrict__ pft,
+                                              int S, int ncols, int* idx,
+                                              int* s_warp, const Cone& cone) {
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
   int live = 0;
-  for (int base = 0; base < seg; base += nthreads) {
+  for (int base = 0; base < ncols; base += nthreads) {
     const int c = base + tid;
     const bool keep =
-        c < seg && column_mask(s_pf + c * kFeat, ax0, ax1, ax2, ch, sh);
+        c < ncols &&
+        column_mask(pft[9 * S + c], pft[10 * S + c], pft[11 * S + c],
+                    pft[kRadiusRow * S + c], cone.ax0, cone.ax1, cone.ax2,
+                    cone.ch, cone.sh);
     const unsigned bal = __ballot_sync(0xffffffffu, keep);
     if (lane == 0) s_warp[warp] = __popc(bal);
     __syncthreads();
@@ -231,11 +228,163 @@ __device__ __forceinline__ int compact_segment(const float* s_pf, int* s_idx,
       off += w < warp ? v : 0;
       total += v;
     }
-    if (keep) s_idx[live + off + __popc(bal & ((1u << lane) - 1u))] = c;
+    if (keep) idx[live + off + __popc(bal & ((1u << lane) - 1u))] = c;
     live += total;
-    __syncthreads();  // s_warp is rewritten next round; s_idx complete
+    __syncthreads();  // s_warp is rewritten next round; idx complete
   }
   return live;
+}
+
+// Copies the n columns of one stream segment, starting at stream position
+// first, into shared memory: s_col[j] = the tile column of lane j
+// (idx[first + j] from compact_stream, or first + j without compaction),
+// the columns as [n][16] f32 records and, when s_sh is given, the SH as
+// [n][3K] bf16. Every thread of the block must call it after a barrier that
+// retires the previous segment's shared reads; it does not end with one.
+template <int K>
+__device__ __forceinline__ void stage_stream(
+    const float* __restrict__ pft, const __nv_bfloat16* __restrict__ sht,
+    const int* idx, float* s_pf, __nv_bfloat16* s_sh, int* s_col, int S,
+    int first, int n, int tid, int nthreads) {
+  for (int j = tid; j < n; j += nthreads)
+    s_col[j] = idx != nullptr ? idx[first + j] : first + j;
+  __syncthreads();
+  for (int i = tid; i < kFeat * n; i += nthreads) {
+    const int row = i / n, j = i - row * n;
+    s_pf[j * kFeat + row] = pft[static_cast<size_t>(row) * S + s_col[j]];
+  }
+  if (s_sh == nullptr) return;
+  for (int i = tid; i < 3 * K * n; i += nthreads) {
+    const int row = i / n, j = i - row * n;
+    s_sh[j * 3 * K + row] = sht[static_cast<size_t>(row) * S + s_col[j]];
+  }
+}
+
+// ---- the order band (TPU kernel composite3.py:579-608, :1049-1066) -------
+//
+// With order_band = B > 0 each lane i of a stream segment has its
+// transmittance prefix corrected for the entry order of the hits within B
+// lanes of it in the same segment:
+//   corr_i = sum_{s=1..B} [tkey_{i+s} < tkey_i] logt_{i+s}
+//                       - [tkey_{i-s} > tkey_i] logt_{i-s}
+//   lw_i = log beta_i + corr_i   (the carry to the next segment is not
+//                                 corrected)
+// with tkey = t* - sqrt(max(e^2/2 - q, 0) / a), the pair's entry distance.
+// A ray walks its columns in stream order, so it holds its hits of the
+// last lanes in a window and finishes a hit once the lanes it compares with
+// have been walked: the forward after B lanes (corr, lw, emission), the
+// backward's second stage after 2B (the transposed band on the weights'
+// adjoints, which needs the finished g_lw of the lanes around it). Only
+// hits enter the window: a lane without a hit under the cap has logt = 0
+// and g_lw = 0 and changes nothing. Windows never cross a segment.
+constexpr int kMaxBand = 32;
+constexpr int kBandCap = 128;  // a power of two >= 3 kMaxBand + 1
+
+// A ray's window of hits: a ring in local memory, sized by the walk to the
+// power of two that holds the hits of the lanes it keeps (2B + 1 or
+// 3B + 1), so its cache footprint follows the band, not kMaxBand. What
+// every walk reads of a hit and what only the backward's stages add are
+// two arrays of records: the forward touches 20 bytes a hit, and a stage
+// reads each record it needs from one place.
+struct BandHit {
+  int lane;
+  float tkey, logt, alpha;
+  float lbe;  // log beta before this hit, uncorrected
+};
+
+struct BandGrad {
+  float lw;      // lbe + corr
+  float g_w;     // g_L . max(e, 0)
+  float w;       // the emission weight
+  float g_lw;    // g_w w
+  float g_base;  // g_logt before the band: g_lb + the later g_lw
+};
+
+template <bool GRAD>
+struct BandWindow {
+  BandHit hit[kBandCap];
+  BandGrad grad[GRAD ? kBandCap : 1];
+  int head, i2, i3, tail;  // running indices: oldest kept, next to finish
+                           // (forward / backward stage 1), next to finish
+                           // in the backward's stage 2, next free
+  int mask;
+  __device__ __forceinline__ int slot(int i) const { return i & mask; }
+  __device__ __forceinline__ const BandHit& at(int i) const {
+    return hit[slot(i)];
+  }
+  __device__ __forceinline__ void reset(int span) {
+    head = i2 = i3 = tail = 0;
+    int cap = 1;
+    while (cap < span) cap <<= 1;
+    mask = cap - 1;
+  }
+  __device__ __forceinline__ void push(const BandHit& h) {
+    hit[slot(tail++)] = h;
+  }
+  // forget the hits before lane `keep` that are finished (index < upto)
+  __device__ __forceinline__ void drop(int keep, int upto) {
+    while (head < upto && at(head).lane < keep) ++head;
+  }
+};
+
+__device__ __forceinline__ float entry_key(const Pair& p, float e2h) {
+  return p.tp - sqrtf(fmaxf(e2h - p.q, 0.0f) / p.a);
+}
+
+// corr of the hit at index x, summed in the TPU kernel's order: for
+// s = 1..B, the forward term of lane + s, then the backward term of
+// lane - s. The walk takes the hits within B lanes in order of distance
+// (the forward one first on a tie), which is that order with the empty
+// lanes skipped. Every hit within B lanes must be in the window.
+template <bool GRAD>
+__device__ __forceinline__ float band_corr(const BandWindow<GRAD>& win, int x,
+                                           int band) {
+  const int lane = win.at(x).lane;
+  const float key = win.at(x).tkey;
+  float corr = 0.0f;
+  int f = x + 1, b = x - 1;
+  int df = f < win.tail ? win.at(f).lane - lane : band + 1;
+  int db = b >= win.head ? lane - win.at(b).lane : band + 1;
+  while (df <= band || db <= band) {
+    if (df <= db) {
+      const BandHit& h = win.at(f);
+      if (h.tkey < key) corr = corr + h.logt;
+      ++f;
+      df = f < win.tail ? win.at(f).lane - lane : band + 1;
+    } else {
+      const BandHit& h = win.at(b);
+      if (h.tkey > key) corr = corr - h.logt;
+      --b;
+      db = b >= win.head ? lane - win.at(b).lane : band + 1;
+    }
+  }
+  return corr;
+}
+
+// g_logt of the hit at index x: its g_base plus the transposed band on the
+// finished g_lw of the hits within B lanes, in the TPU kernel's order: for
+// s = 1..B, + g_lw of lane - s where this key is nearer, then - g_lw of
+// lane + s where this key is farther (the backward one first on a tie).
+__device__ __forceinline__ float band_adjoint(const BandWindow<true>& win,
+                                              int x, int band) {
+  const int lane = win.at(x).lane;
+  const float key = win.at(x).tkey;
+  float g = win.grad[win.slot(x)].g_base;
+  int f = x + 1, b = x - 1;
+  int df = f < win.tail ? win.at(f).lane - lane : band + 1;
+  int db = b >= win.head ? lane - win.at(b).lane : band + 1;
+  while (df <= band || db <= band) {
+    if (db <= df) {
+      if (key < win.at(b).tkey) g = g + win.grad[win.slot(b)].g_lw;
+      --b;
+      db = b >= win.head ? lane - win.at(b).lane : band + 1;
+    } else {
+      if (key > win.at(f).tkey) g = g - win.grad[win.slot(f)].g_lw;
+      ++f;
+      df = f < win.tail ? win.at(f).lane - lane : band + 1;
+    }
+  }
+  return g;
 }
 
 }  // namespace composite3

@@ -121,15 +121,16 @@ def load(name: str) -> ctypes.CDLL:
 _BOUND: set = set()
 
 
-def bind(name: str, argtypes: list) -> ctypes.CDLL:
-    """:func:`load`, with the entry point ``name`` taking ``argtypes`` and
-    returning an int error code, and ``<name>_error_string`` bound as
-    ``lib.error_string``."""
+def bind(name: str, argtypes: list, entry: str = None) -> ctypes.CDLL:
+    """:func:`load`, with the entry point ``entry`` (default ``name``)
+    taking ``argtypes`` and returning an int error code, and
+    ``<entry>_error_string`` bound as ``lib.error_string``."""
     lib = load(name)
+    entry = entry or name
     if name not in _BOUND:
-        fn = getattr(lib, name)
+        fn = getattr(lib, entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
+        err = getattr(lib, f"{entry}_error_string")
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         lib.error_string = err
         _BOUND.add(name)

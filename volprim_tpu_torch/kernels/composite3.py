@@ -15,7 +15,12 @@ the log-transmittance prefix with the ``beta_kill`` cutoff, and SH emission.
   tensors its forward launches ``csrc/composite3_fwd.cu`` and its backward
   ``csrc/composite3_bwd.cu``; CPU tensors take the plain versions. The
   launches are counted in ``composite_tiles3.launches`` and
-  ``composite_tiles3_bwd.launches``.
+  ``composite_tiles3_bwd.launches``. :func:`forward3` is its forward with
+  the profiling counters (segments walked and live per tile);
+- ``compact`` walks each tile's columns that meet its ray cone as one
+  packed stream (:func:`_stream`), ``order_band`` corrects each pair's
+  transmittance prefix for the entry order of the pairs within that many
+  lanes of it in its stream segment (:func:`_band_corr`).
 
 Packed column rows (the HALVED convention: rows 0-8 and 13 carry M/2, so
 the kernel compares against extent^2 / 2)::
@@ -187,43 +192,121 @@ def _capped(alpha0, count, max_depth):
     return cum <= max_depth, cum[..., -1:]
 
 
-def composite_tiles3_reference(
-    d8: torch.Tensor,  # [T, 8, R] f32 direction rows (+ cone rows 3-7)
-    pf: torch.Tensor,  # [T, 16, S] f32 packed columns
-    sh3: torch.Tensor,  # [T, 3k, S] SH rows (bf16 or f32)
-    n_seg_t: torch.Tensor,  # [T] int live segments per tile
-    seg: int = 256,
-    extent2: float = 9.0,
-    max_depth: int = 128,
-    beta_kill: float = 0.01,
-    sh_k: int = 16,
-):
-    """Plain PyTorch version of the forward compositor: segment by segment,
-    with ``torch.cumsum`` for the hit count and the log-transmittance
-    prefix. It does not compact: compaction only drops columns that no ray
-    of the tile can hit. Returns (L [T, R, 3], beta [T, R]) in pf's dtype:
-    f32 as the kernel computes; the CPU tests pass f64 as a yardstick."""
+def _entry_keys(cols, d3_32, f6_32, e2h):
+    """[T, R, C] entry distance of each pair along its ray,
+    t* - sqrt(max(e^2/2 - q, 0) / a), the key the order band compares
+    (composite3.py:592-593). Always in f32, as the kernels take it: an f64
+    run of a plain version then decides near-tie pairs as they do."""
+    _, a, b, _, q_raw, *_ = _segment_pairs(cols.float(), d3_32, f6_32, e2h, True)
+    disc = torch.clamp(e2h - torch.clamp(q_raw, min=0.0), min=0.0)
+    return -b / a - torch.sqrt(disc / a)
+
+
+def _pad(x, left, right):
+    return torch.nn.functional.pad(x, (left, right))
+
+
+def _band_corr(tkey, logt, band):
+    """The banded order correction of each lane of a segment
+    (composite3.py:579-608): for s = 1..band, + logt[i + s] where
+    tkey[i + s] < tkey[i], then - logt[i - s] where tkey[i - s] > tkey[i];
+    lanes past the segment's ends take no part, NaN keys compare false."""
+    corr = torch.zeros_like(logt)
+    for s_ in range(1, min(band, tkey.shape[-1] - 1) + 1):
+        near, far = tkey[..., :-s_], tkey[..., s_:]  # lanes i and i + s
+        corr = corr + _pad(torch.where(far < near, logt[..., s_:], 0.0), 0, s_)
+        corr = corr - _pad(torch.where(near > far, logt[..., :-s_], 0.0), s_, 0)
+    return corr
+
+
+def _band_corr_adjoint(g_logt, tkey, g_lw, band):
+    """g_logt plus the transpose of :func:`_band_corr` applied to the lane
+    weights' adjoints g_lw (composite3.py:1049-1066): for s = 1..band,
+    + g_lw[j - s] where tkey[j] < tkey[j - s], then - g_lw[j + s] where
+    tkey[j] > tkey[j + s]. The keys get no gradient."""
+    for s_ in range(1, min(band, tkey.shape[-1] - 1) + 1):
+        near, far = tkey[..., :-s_], tkey[..., s_:]  # lanes j - s and j
+        g_logt = g_logt + _pad(torch.where(far < near, g_lw[..., :-s_], 0.0), s_, 0)
+        g_logt = g_logt - _pad(torch.where(near > far, g_lw[..., s_:], 0.0), 0, s_)
+    return g_logt
+
+
+@torch.no_grad()
+def column_keep(d8, pf):
+    """[T, S] columns whose bounding sphere meets the tile's ray cone (d8
+    rows 3-7): the compaction mask of the kernels (column_mask in
+    csrc/composite3_common.cuh; JAX's _column_mask), in f32."""
+    d8, pf = d8.float(), pf.float()
+    ax0, ax1, ax2, ch, sh_ = (d8[:, i, 0:1] for i in range(3, 8))
+    vx, vy, vz, r = -pf[:, 9], -pf[:, 10], -pf[:, 11], pf[:, 14]
+    dist2 = vx * vx + vy * vy + vz * vz
+    a = vx * ax0 + vy * ax1 + vz * ax2
+    b2 = torch.clamp(dist2 - a * a, min=0.0)
+    ch2 = ch * ch
+    inside = (a > 0.0) & (b2 * ch2 <= (a * a) * (sh_ * sh_))
+    rhs = r + a * sh_
+    near = (rhs >= 0.0) & (b2 * ch2 <= rhs * rhs)
+    return (((inside | near) & (a + r > 1e-4)) | (dist2 <= r * r)) & (r >= 0.0)
+
+
+def _stream(d8, pf, sh3, n_seg_t, seg, compact):
+    """The column stream the compositor walks, as (pf, sh3, n_seg, order,
+    inside): without ``compact`` the tile's columns; with it the live
+    columns that pass :func:`column_keep`, packed to the front in stream
+    order (the TPU kernel's _compact_phase :403 packs them exactly so),
+    then neutral columns with zero SH. ``order`` [T, S] is the permutation
+    that gathered them and ``inside`` [T, S] marks the packed survivors
+    (None without ``compact``); n_seg [T] counts the stream's segments."""
+    s = pf.shape[2]
+    nseg = torch.clamp(n_seg_t.to(torch.int64).to(d8.device), 0, s // seg)
+    if not compact:
+        return pf, sh3, nseg, None, None
+    lane = torch.arange(s, device=d8.device)
+    keep = (lane[None, :] // seg < nseg[:, None]) & column_keep(d8, pf)
+    order = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
+    total = keep.sum(dim=1)
+    inside = lane[None, :] < total[:, None]
+    neutral = neutral_fused_row(d8.device).to(pf.dtype)
+    pf_c = torch.gather(pf, 2, order[:, None, :].expand_as(pf))
+    pf_c = torch.where(inside[:, None, :], pf_c, neutral[None, :, None])
+    sh_c = torch.gather(sh3, 2, order[:, None, :].expand_as(sh3))
+    sh_c = torch.where(inside[:, None, :], sh_c, torch.zeros((), dtype=sh3.dtype))
+    return pf_c, sh_c, (total + seg - 1) // seg, order, inside
+
+
+def _forward3_reference(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill,
+                        sh_k, compact, order_band):
+    """(L, beta, walked, live) of the plain forward; see
+    :func:`composite_tiles3_reference` and :func:`forward3`."""
     t, _, r = d8.shape
     s = pf.shape[2]
     if s % seg:
         raise ValueError(f"S = {s} is not a multiple of seg = {seg}")
     dtype = pf.dtype
+    pf, sh3, nseg, _, _ = _stream(d8, pf, sh3, n_seg_t, seg, compact)
     d3, f6, _, basis = _ray_terms(d8.to(dtype), sh_k, sh3.dtype)
+    d3_32, f6_32, _, _ = _ray_terms(d8.float(), sh_k, sh3.dtype)
     e2h = extent2 * 0.5
     log_kill = _log_kill(beta_kill)
-    nseg = torch.clamp(n_seg_t.to(torch.int64), max=s // seg).to(d8.device)
     log_beta = torch.zeros((t, r, 1), dtype=dtype, device=d8.device)
     count = torch.zeros_like(log_beta)
     l_acc = torch.zeros((t, r, 3), dtype=dtype, device=d8.device)
+    walked = torch.zeros((t,), dtype=torch.int64, device=d8.device)
     for si in range(int(nseg.max()) if t else 0):
         live = (si < nseg)[:, None, None]  # [T, 1, 1]
+        # the kernels walk a segment while some ray of the tile is under its cap
+        walked += live[:, 0, 0] & (count[..., 0] <= max_depth).any(dim=1)
         cols = pf[:, :, si * seg:(si + 1) * seg]
         alpha0 = _segment_pairs(cols, d3, f6, e2h, live)[7]
         depth_ok, count = _capped(alpha0, count, max_depth)
         alpha = torch.where(depth_ok, alpha0, 0.0)
         logt = torch.log1p(-alpha)
         cs_incl = torch.cumsum(logt, dim=-1)
-        lw = log_beta + (cs_incl - logt)
+        cs_excl = cs_incl - logt
+        if order_band > 0:
+            tkey = _entry_keys(cols, d3_32, f6_32, e2h)
+            cs_excl = cs_excl + _band_corr(tkey, logt, order_band)
+        lw = log_beta + cs_excl
         w = torch.where(lw > log_kill, torch.exp(lw) * alpha, 0.0)
         shs = sh3[:, :, si * seg:(si + 1) * seg].to(dtype)  # [T, 3k, C]
         inc = torch.stack(
@@ -241,7 +324,35 @@ def composite_tiles3_reference(
         )
         l_acc = l_acc + torch.where(live, inc, 0.0)
         log_beta = log_beta + cs_incl[..., -1:]
-    return l_acc, torch.exp(log_beta[..., 0])
+    return (l_acc, torch.exp(log_beta[..., 0]), walked.to(torch.int32),
+            nseg.to(torch.int32))
+
+
+def composite_tiles3_reference(
+    d8: torch.Tensor,  # [T, 8, R] f32 direction rows (+ cone rows 3-7)
+    pf: torch.Tensor,  # [T, 16, S] f32 packed columns
+    sh3: torch.Tensor,  # [T, 3k, S] SH rows (bf16 or f32)
+    n_seg_t: torch.Tensor,  # [T] int live segments per tile
+    seg: int = 256,
+    extent2: float = 9.0,
+    max_depth: int = 128,
+    beta_kill: float = 0.01,
+    sh_k: int = 16,
+    compact: bool = False,
+    order_band: int = 0,
+):
+    """Plain PyTorch version of the forward compositor: segment by segment,
+    with ``torch.cumsum`` for the hit count and the log-transmittance
+    prefix. With ``compact`` it walks the compacted stream (:func:`_stream`):
+    compaction drops only columns that no ray of the tile can hit, so it
+    changes L only through the segment boundaries of the order band and the
+    rounding of the carries. ``order_band`` > 0 corrects each lane's
+    transmittance prefix for the entry order of its neighbours within that
+    many lanes of the same segment (:func:`_band_corr`). Returns
+    (L [T, R, 3], beta [T, R]) in pf's dtype: f32 as the kernel computes;
+    the CPU tests pass f64 as a yardstick."""
+    return _forward3_reference(d8, pf, sh3, n_seg_t, seg, extent2, max_depth,
+                               beta_kill, sh_k, compact, order_band)[:2]
 
 
 def composite_tiles3_bwd_reference(
@@ -256,6 +367,8 @@ def composite_tiles3_bwd_reference(
     max_depth: int = 128,
     beta_kill: float = 0.01,
     sh_k: int = 16,
+    compact: bool = False,
+    order_band: int = 0,
 ):
     """Plain PyTorch version of the backward compositor: the vector-Jacobian
     product of :func:`composite_tiles3_reference`, computed as the TPU
@@ -264,25 +377,30 @@ def composite_tiles3_bwd_reference(
     carry; the reverse sweep recomputes each segment and accumulates the
     adjoints of the packed rows and the SH table. The SH adjoint takes the
     f32 basis, while the emission it differentiates took the bf16-rounded
-    one, as in the TPU kernel. It does not compact: compaction changes no
-    gradient (a dropped column has alpha = 0 for every ray of its tile).
+    one, as in the TPU kernel. With ``compact`` it walks the compacted
+    stream and scatters the adjoints back to their slots (a dropped column
+    has alpha = 0 for every ray of its tile, so its adjoint is 0). With
+    ``order_band`` it recomputes the band and applies its transpose to the
+    lane weights' adjoints (:func:`_band_corr_adjoint`).
 
     Returns (gpf [T, 16, S] in pf's dtype with rows 13-15 zero, gsh
     [T, 3k, S] in sh3's dtype). It computes in pf's dtype: f32 as the
     kernel does; given pf in f64 it is the yardstick that the tests and
     chip_smoke.py hold both f32 versions to (adjoints such as g_u, whose
     exact value is 0 at the closest approach, are rounding noise in every
-    f32 version)."""
+    f32 version). The band's entry keys are f32 in every dtype, so the
+    yardstick orders near-tie pairs as the f32 versions do."""
     t, _, r = d8.shape
     s = pf.shape[2]
     if s % seg:
         raise ValueError(f"S = {s} is not a multiple of seg = {seg}")
     dev = d8.device
     dtype = pf.dtype
+    pf, sh3_s, nseg, order, inside = _stream(d8, pf, sh3, n_seg_t, seg, compact)
     d3, f6, basis_f, basis = _ray_terms(d8.to(dtype), sh_k, sh3.dtype)
+    d3_32, f6_32, _, _ = _ray_terms(d8.float(), sh_k, sh3.dtype)
     e2h = extent2 * 0.5
     log_kill = _log_kill(beta_kill)
-    nseg = torch.clamp(n_seg_t.to(torch.int64), max=s // seg).to(dev)
     n_walk = int(nseg.max()) if t else 0
     g_l = g_l.to(dtype)
     gpf = torch.zeros((t, _FEAT, s), dtype=dtype, device=dev)
@@ -313,11 +431,15 @@ def composite_tiles3_bwd_reference(
         log_beta, count = carries[si]
         pairs, depth_ok, alpha, logt, cs_incl, _ = segment(si, log_beta, count)
         row, a, b, (px, py, pz), q_raw, dens, raw, _, hit = pairs
-        lw = log_beta + (cs_incl - logt)
+        cs_excl = cs_incl - logt
+        if order_band > 0:
+            tkey = _entry_keys(pf[:, :, sl], d3_32, f6_32, e2h)
+            cs_excl = cs_excl + _band_corr(tkey, logt, order_band)
+        lw = log_beta + cs_excl
         alive = lw > log_kill
         exp_lw = torch.exp(lw)
         w = torch.where(alive, exp_lw * alpha, 0.0)
-        shs = sh3[:, :, sl].to(dtype)
+        shs = sh3_s[:, :, sl].to(dtype)
         g_w = torch.zeros_like(w)
         for ch in range(3):
             e_raw = torch.matmul(basis, shs[:, ch * sh_k:(ch + 1) * sh_k])
@@ -334,6 +456,8 @@ def composite_tiles3_bwd_reference(
         g_lw64 = g_lw.to(torch.float64)
         tot = torch.sum(g_lw64, dim=-1, keepdim=True)
         g_logt = g_lb + (tot - torch.cumsum(g_lw64, dim=-1)).to(dtype)
+        if order_band > 0:
+            g_logt = _band_corr_adjoint(g_logt, tkey, g_lw, order_band)
         g_alpha = torch.where(alive, g_w * exp_lw, 0.0) + g_logt * (
             -1.0 / (1.0 - alpha)
         )
@@ -363,20 +487,33 @@ def composite_tiles3_bwd_reference(
         rows.append(torch.sum(g_raw * dens, dim=1))
         gpf[:, :13, sl] = torch.stack(rows, dim=1)
         g_lb = g_lb + tot.to(dtype)
+    if compact:
+        # back to the original slots; the neutral tail's adjoints are 0
+        gpf = torch.zeros_like(gpf).scatter_(
+            2, order[:, None, :].expand_as(gpf), torch.where(inside[:, None, :], gpf, 0.0)
+        )
+        gsh = torch.zeros_like(gsh).scatter_(
+            2, order[:, None, :].expand_as(gsh), torch.where(inside[:, None, :], gsh, 0.0)
+        )
     return gpf, gsh.to(sh3.dtype)
 
 
 # tensor pointers each C entry point takes before its scalar arguments
-_N_POINTERS = {"composite3_fwd": 6, "composite3_bwd": 10}
+_N_POINTERS = {"composite3_fwd": 9, "composite3_bwd": 11}
+# widest order band the kernels take: each ray keeps its hits of the last
+# 3 * MAX_BAND + 1 lanes of a segment (kMaxBand in composite3_common.cuh)
+MAX_BAND = 32
 
 
 def _lib(name: str = "composite3_fwd"):
     """The ctypes library of ``csrc/<name>.cu`` (built at first use)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind(name, [vp] * _N_POINTERS[name] + [ci, ci, ci, ci, ci, cf, ci, cf, ci, vp])
+    return _build.bind(
+        name, [vp] * _N_POINTERS[name] + [ci, ci, ci, ci, ci, cf, ci, cf, ci, ci, vp]
+    )
 
 
-def _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k, extra=()):
+def _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k, order_band, extra=()):
     """Device, dtype, shape and contiguity checks of the kernels' inputs."""
     dev = d8.device
     t, rows, r = d8.shape
@@ -403,36 +540,47 @@ def _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k, extra=()):
         )
     if tuple(n_seg_t.shape) != (t,) or seg < 1 or s % seg:
         raise ValueError(f"n_seg_t must be [{t}] and S = {s} a multiple of seg = {seg}")
+    if not 0 <= order_band <= MAX_BAND:
+        raise ValueError(f"the kernels take order_band 0..{MAX_BAND}, got {order_band}")
     return t, r, s
 
 
+def _stream_scratch(t, s, compact, dev):
+    """The kernels' list of each tile's surviving columns (compaction)."""
+    return torch.empty((t, s) if compact else (1,), dtype=torch.int32, device=dev)
+
+
 def _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k,
-            compact):
-    """Launch csrc/composite3_fwd.cu: (L [T, R, 3], beta [T, R])."""
-    t, r, s = _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k)
+            compact, order_band=0):
+    """Launch csrc/composite3_fwd.cu: (L [T, R, 3], beta [T, R], walked [T],
+    live [T])."""
+    t, r, s = _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k, order_band)
     dev = d8.device
     lib = _lib("composite3_fwd")
     l_out = torch.empty((t, r, 3), dtype=torch.float32, device=dev)
     beta = torch.empty((t, r), dtype=torch.float32, device=dev)
+    counts = torch.empty((2, t), dtype=torch.int32, device=dev)
+    idx = _stream_scratch(t, s, compact, dev)
     with torch.cuda.device(dev):
         err = lib.composite3_fwd(
             d8.data_ptr(), pf.data_ptr(), sh3.data_ptr(), n_seg_t.data_ptr(),
-            l_out.data_ptr(), beta.data_ptr(), t, r, s, seg, sh_k,
+            l_out.data_ptr(), beta.data_ptr(), counts[0].data_ptr(),
+            counts[1].data_ptr(), idx.data_ptr(), t, r, s, seg, sh_k,
             extent2 * 0.5, int(max_depth), _log_kill(beta_kill), int(compact),
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(order_band), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.raise_on(lib, err, "composite3_fwd")
     composite_tiles3.launches += 1
-    return l_out, beta
+    return l_out, beta, counts[0], counts[1]
 
 
 def _launch_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth,
-                beta_kill, sh_k, compact):
+                beta_kill, sh_k, compact, order_band=0):
     """Launch csrc/composite3_bwd.cu: (gpf [T, 16, S] f32, gsh [T, 3k, S]
     bf16)."""
     f32 = torch.float32
     t, r, s = _check_inputs(
-        d8, pf, sh3, n_seg_t, seg, sh_k,
+        d8, pf, sh3, n_seg_t, seg, sh_k, order_band,
         (("g_l", g_l, f32), ("g_beta", g_beta, f32)),
     )
     if tuple(g_l.shape) != (t, r, 3) or tuple(g_beta.shape) != (t, r):
@@ -447,37 +595,53 @@ def _launch_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth,
     # per-segment (log beta, hit count) carries of every ray
     lb_scr = torch.empty((t, s // seg, r), dtype=f32, device=dev)
     cnt_scr = torch.empty((t, s // seg, r), dtype=torch.int32, device=dev)
+    idx = _stream_scratch(t, s, compact, dev)
     with torch.cuda.device(dev):
         err = lib.composite3_bwd(
             d8.data_ptr(), pf.data_ptr(), sh3.data_ptr(), n_seg_t.data_ptr(),
             g_l.data_ptr(), g_beta.data_ptr(), lb_scr.data_ptr(),
-            cnt_scr.data_ptr(), gpf.data_ptr(), gsh.data_ptr(), t, r, s, seg,
-            sh_k, extent2 * 0.5, int(max_depth), _log_kill(beta_kill),
-            int(compact), torch.cuda.current_stream(dev).cuda_stream,
+            cnt_scr.data_ptr(), idx.data_ptr(), gpf.data_ptr(), gsh.data_ptr(),
+            t, r, s, seg, sh_k, extent2 * 0.5, int(max_depth),
+            _log_kill(beta_kill), int(compact), int(order_band),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.raise_on(lib, err, "composite3_bwd")
     composite_tiles3_bwd.launches += 1
     return gpf, gsh
 
 
+def forward3(d8, pf, sh3, n_seg_t, seg=256, extent2=9.0, max_depth=128,
+             beta_kill=0.01, sh_k=16, compact=False, order_band=0):
+    """The forward compositor with its profiling counters, as JAX's
+    ``_forward3`` (composite3.py:1202) returns them in columns 4-5:
+    (L [T, R, 3], beta [T, R], walked [T], live [T]). ``live`` counts the
+    segments of each tile's stream: ceil(survivors / seg) with ``compact``,
+    else its live segments. ``walked`` counts the segments the port walked:
+    a tile stops when every ray is past its hit cap (JAX stops under
+    ``early_exit`` when every ray is also spent, so the two differ).
+    CUDA tensors launch csrc/composite3_fwd.cu; CPU tensors take the plain
+    version. Not differentiable: :func:`composite_tiles3` is."""
+    args = (seg, extent2, max_depth, beta_kill, sh_k, compact, order_band)
+    if d8.device.type == "cpu":
+        return _forward3_reference(d8, pf, sh3, n_seg_t, *args)
+    if d8.device.type != "cuda":
+        raise ValueError(f"composite_tiles3 runs on CPU or CUDA, not {d8.device}")
+    return _launch(d8, pf, sh3, n_seg_t, *args)
+
+
 def composite_tiles3_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, seg=256,
                          extent2=9.0, max_depth=128, beta_kill=0.01, sh_k=16,
-                         compact=False):
+                         compact=False, order_band=0):
     """Backward compositor: (gpf [T, 16, S] f32, gsh [T, 3k, S] in sh3's
     dtype). CUDA tensors launch the hand-written kernel
     (csrc/composite3_bwd.cu) and raise if it does not launch; CPU tensors
     take :func:`composite_tiles3_bwd_reference`."""
+    args = (seg, extent2, max_depth, beta_kill, sh_k, compact, order_band)
     if d8.device.type == "cpu":
-        return composite_tiles3_bwd_reference(
-            d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth,
-            beta_kill, sh_k,
-        )
+        return composite_tiles3_bwd_reference(d8, pf, sh3, n_seg_t, g_l, g_beta, *args)
     if d8.device.type != "cuda":
         raise ValueError(f"composite_tiles3_bwd runs on CPU or CUDA, not {d8.device}")
-    return _launch_bwd(
-        d8, pf, sh3, n_seg_t, g_l.contiguous(), g_beta.contiguous(), seg,
-        extent2, max_depth, beta_kill, sh_k, compact,
-    )
+    return _launch_bwd(d8, pf, sh3, n_seg_t, g_l.contiguous(), g_beta.contiguous(), *args)
 
 
 composite_tiles3_bwd.launches = 0
@@ -489,17 +653,10 @@ class _Composite3(torch.autograd.Function):
     float0). An unused beta output is a zero cotangent."""
 
     @staticmethod
-    def forward(ctx, d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill,
-                sh_k, compact):
-        args = (seg, extent2, max_depth, beta_kill, sh_k)
-        if d8.device.type == "cpu":
-            out = composite_tiles3_reference(d8, pf, sh3, n_seg_t, *args)
-        elif d8.device.type == "cuda":
-            out = _launch(d8, pf, sh3, n_seg_t, *args, compact)
-        else:
-            raise ValueError(f"composite_tiles3 runs on CPU or CUDA, not {d8.device}")
+    def forward(ctx, d8, pf, sh3, n_seg_t, *args):
+        out = forward3(d8, pf, sh3, n_seg_t, *args)[:2]
         ctx.save_for_backward(d8, pf, sh3, n_seg_t)
-        ctx.args = args + (compact,)
+        ctx.args = args
         ctx.set_materialize_grads(True)
         return out
 
@@ -508,7 +665,7 @@ class _Composite3(torch.autograd.Function):
         d8, pf, sh3, n_seg_t = ctx.saved_tensors
         gpf, gsh = composite_tiles3_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, *ctx.args)
         need = ctx.needs_input_grad
-        return (None, gpf if need[1] else None, gsh if need[2] else None) + (None,) * 7
+        return (None, gpf if need[1] else None, gsh if need[2] else None) + (None,) * 8
 
 
 def composite_tiles3(
@@ -522,18 +679,22 @@ def composite_tiles3(
     beta_kill: float = 0.01,
     sh_k: int = 16,
     compact: bool = False,
+    order_band: int = 0,
 ):
     """Fused compositor: (L [T, R, 3], beta [T, R]), differentiable in
     ``pf`` and ``sh3``.
 
     CUDA tensors launch the hand-written kernels (csrc/composite3_fwd.cu,
     and csrc/composite3_bwd.cu in the backward; with ``compact`` both first
-    drop the columns whose bounding sphere misses the tile's ray cone) and
-    raise if one does not launch. CPU tensors take
-    :func:`composite_tiles3_reference` and
+    drop the columns whose bounding sphere misses the tile's ray cone and
+    walk the survivors as one packed stream; ``order_band`` > 0 corrects
+    each pair's transmittance prefix for the entry order of its stream
+    neighbours, as the TPU kernel's order band) and raise if one does not
+    launch. CPU tensors take :func:`composite_tiles3_reference` and
     :func:`composite_tiles3_bwd_reference`."""
     return _Composite3.apply(
-        d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k, compact
+        d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k, compact,
+        order_band,
     )
 
 

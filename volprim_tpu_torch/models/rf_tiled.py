@@ -22,7 +22,9 @@ supercluster spheres, cone keys, shortlists) selects integer ids and is
 computed on detached tensors.
 
 Ported: ``backend='fused'`` with the two-level cull, ``budget_classes``,
-``kernel_compact`` and ``cluster_sort``; ``backend='pallas'`` (v1:
+``kernel_compact``, ``cluster_sort``, the banded order correction
+(``order_band``, per class ``band_classes``) and the refinement of
+truncated tiles (``refine_fraction``, ``refine_factor``); ``backend='pallas'`` (v1:
 kernels/composite.py + composite_vjp.py) and ``backend='pallas2'`` (v2,
 camera-relative: kernels/composite2.py), which expand the cluster shortlist
 to primitives, refine it with ``prim_resort`` (True, 'entry', 'cluster',
@@ -34,9 +36,14 @@ ignored by v1 and v2, as in JAX. The TPU layout knobs (``feat_major``,
 ``kernel_batch``, ``tile_group``) have no counterpart. The fused
 compositor always walks a tile's full stream (its beta is the full capped
 product), so ``early_exit`` changes nothing here. What is not ported yet
-(the ``xla`` backend, ``use_clusters=False``, ``order_band``,
-``band_classes``, ``refine_fraction``) raises NotImplementedError naming
-its ROADMAP.md item.
+(the ``xla`` backend, ``use_clusters=False``, ``prim_resort`` with the
+fused backend) raises NotImplementedError naming its ROADMAP.md item.
+
+``_DEBUG_STOP`` (set by tools/profile_rf.py) makes a frame return early, as
+JAX's does: after the cull ("cull") or the pack ("pack"), or inside each
+tile block after the column gather ("gather_pf") or the SH gather
+("gather"), with a cheap probe of what was computed (sums times 1e-12,
+broadcast to the tiles) so that the stages before it can be timed.
 """
 
 from __future__ import annotations
@@ -56,6 +63,10 @@ from ..scene.ellipsoids import EllipsoidScene
 from .base import pad_primitives
 
 _SH = 16  # SH coefficients per channel block of the v1/v2 table
+
+# Profiling hook (tools/profile_rf.py): None, "cull", "pack", "gather_pf" or
+# "gather"; see the module docstring.
+_DEBUG_STOP = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,13 +94,22 @@ class RFTiledConfig:
     coarse_group: int = 0
     coarse_factor: int = 4
     super_group: int = 16
+    # after the base pass, re-render the refine_fraction of tiles most
+    # likely truncated (a full cluster list and rays still above beta_kill
+    # at its end) with a refine_factor-times-larger shortlist; 0 disables
     refine_fraction: float = 0.0
+    refine_factor: int = 4
     # ((fraction, clusters), ...): tiles sorted by need (finite cull keys)
     # split into static-fraction classes, each with its own cluster budget
     budget_classes: tuple = ()
     kernel_compact: bool = False  # drop columns outside the tile cone in-kernel
     cluster_sort: bool = False  # per-frame intra-cluster entry-distance sort
+    # per-ray banded order correction: each pair's transmittance prefix is
+    # corrected for the entry order of the pairs within order_band lanes of
+    # it in its compositor segment (the compacted stream with
+    # kernel_compact); 0 disables
     order_band: int = 0
+    # one band per budget class (None inherits order_band)
     band_classes: tuple = ()
 
     @property
@@ -102,9 +122,6 @@ def _check_config(cfg: RFTiledConfig) -> None:
     todo = {
         f"backend={cfg.backend!r}": cfg.backend not in ("fused", "pallas", "pallas2"),
         "use_clusters=False": not cfg.use_clusters,
-        "refine_fraction > 0": cfg.refine_fraction > 0.0,
-        "order_band > 0": cfg.order_band > 0,
-        "band_classes": bool(cfg.band_classes),
         "prim_resort with backend='fused'": cfg.backend == "fused" and bool(cfg.prim_resort),
     }
     missing = [k for k, v in todo.items() if v]
@@ -115,6 +132,16 @@ def _check_config(cfg: RFTiledConfig) -> None:
         )
     if cfg.prim_resort not in (None, False, True, "entry", "cluster", "cluster-entry"):
         raise ValueError(f"unknown prim_resort {cfg.prim_resort!r}")
+    if cfg.backend == "fused":
+        # the fused backend's knobs, as JAX asserts them (rf_tiled.py:649,
+        # :1078); band_classes without budget_classes would be dropped
+        if cfg.budget_classes and cfg.refine_fraction > 0.0:
+            raise ValueError("budget_classes replaces refine_fraction")
+        if cfg.band_classes and len(cfg.band_classes) != len(cfg.budget_classes):
+            raise ValueError(
+                "band_classes needs one band per budget_classes entry, got "
+                f"{len(cfg.band_classes)} for {len(cfg.budget_classes)} classes"
+            )
     cfg.kernel  # refuses non-Gaussian kernels
 
 
@@ -343,7 +370,7 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
     gc = cfg.coarse_group
     use_fused = cfg.backend == "fused"
     use_classes = bool(cfg.budget_classes) and use_fused  # fused only, as in JAX
-    id_map = None
+    id_map = strips = None
     if gc > 1 and n_tiles % gc == 0:
         # ---- two-level cull: strip cones -> per-tile refinement ----------
         n_coarse = n_tiles // gc
@@ -389,6 +416,7 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
             rep(cc[:, 0]), rep(cc[:, 1]), rep(cc[:, 2]), rep(cc[:, 3]),
         )
         id_map = rep(cl_c)
+        strips = (cl_c, cc)  # the strips' candidate clusters and spheres
         if not use_classes:
             loc_ids, cl_valid = tiling.shortlist(keys, min(k_cl, k_c))
             cl_ids = torch.gather(id_map, 1, loc_ids)
@@ -422,14 +450,22 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
             order[:, None, :].expand(ncl, 3 * kl, cs),
         ).reshape(ncl, 3 * kl * cs)
     ptab_rows = planes.permute(1, 0, 2).reshape(ncl, 16 * cs)
+    if _DEBUG_STOP in ("cull", "pack"):
+        probe = torch.where(torch.isfinite(keys), keys, 0.0).sum() * 1e-12
+        if _DEBUG_STOP == "pack":
+            probe = probe + ptab_rows.sum() * 1e-12
+        return probe.expand(n_tiles, rt, 3)
     neutral = composite3.neutral_fused_row(dev)
     fold = max(1, min(spp, 512 // rt))
     while spp % fold:
         fold -= 1
 
-    def fused_block(cl_i, cl_v, k_here, px_b, py_b, tid_b):
-        """Gather and composite a block of tiles: sum over samples [Tb, RT, 3]."""
+    def fused_block(cl_i, cl_v, k_here, px_b, py_b, tid_b, band=None):
+        """Gather and composite a block of tiles: (sum over samples
+        [Tb, RT, 3], the first sample's beta [Tb, RT]). ``band`` overrides
+        cfg.order_band for this block."""
         tb = px_b.shape[0]
+        band_here = int(cfg.order_band if band is None else band)
         seg = min(cfg.segment, k_here * cs)
         per_seg = max(1, seg // cs)
         if k_here % per_seg:
@@ -450,6 +486,9 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
             .reshape(tb, 16, s_here)
         )
         pf_t = torch.where(valid_row[:, None, :], pf_t, neutral[None, :, None])
+        if _DEBUG_STOP == "gather_pf":
+            probe = (pf_t.sum() + n_seg_t.sum().to(f32)) * 1e-12
+            return probe.expand(tb, rt, 3), torch.ones((tb, rt), device=dev)
         # invalid slots' SH needs no mask: their opacity is 0, so their
         # emission weight is exactly 0 (the rows are real, finite clusters)
         sh_t = (
@@ -458,7 +497,11 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
             .permute(0, 2, 1, 3)
             .reshape(tb, 3 * kl, s_here)
         )
+        if _DEBUG_STOP == "gather":
+            probe = (pf_t.sum() + sh_t.to(f32).sum() + n_seg_t.sum().to(f32)) * 1e-12
+            return probe.expand(tb, rt, 3), torch.ones((tb, rt), device=dev)
         acc_b = torch.zeros((tb, rt, 3), dtype=f32, device=dev)
+        beta0 = None
         for g in range(spp // fold):
             # spp folding: `fold` samples' rays share one shortlist walk
             cols = []
@@ -468,7 +511,7 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
             d8 = composite3.pack_direction_rows(
                 *(torch.cat([c[i] for c in cols], dim=1) for i in range(3))
             )
-            l, _ = composite3.composite_tiles3(
+            l, beta = composite3.composite_tiles3(
                 d8, pf_t, sh_t, n_seg_t,
                 seg=seg,
                 extent2=state.extent ** 2,
@@ -476,14 +519,21 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
                 beta_kill=cfg.beta_kill,
                 sh_k=kl,
                 compact=cfg.kernel_compact,
+                order_band=band_here,
             )
+            if beta0 is None:
+                beta0 = beta[:, :rt]
             if cfg.srgb_primitives:
                 l = srgb_to_linear(l)  # per sample
             acc_b = acc_b + l.reshape(tb, fold, rt, 3).sum(dim=1)
-        return acc_b
+        return acc_b, beta0
 
     if not use_classes:
-        return fused_block(cl_ids, cl_valid, k_cl, px0, py0, tile_ids) / spp
+        acc, beta0 = fused_block(cl_ids, cl_valid, k_cl, px0, py0, tile_ids)
+        if cfg.refine_fraction > 0.0:
+            acc = _refine(state, cfg, acc, beta0, cl_valid, k_cl, strips, origin,
+                          axis, cos_half, px0, py0, tile_ids, fused_block)
+        return acc / spp
 
     # ---- need-ordered budget classes ---------------------------------------
     kcap = keys.shape[1]
@@ -492,16 +542,61 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
     # which budget a tile gets
     order = torch.argsort(n_fin, stable=True)
     counts = _class_counts(n_tiles, cfg.budget_classes)
+    bands = cfg.band_classes or (None,) * len(cfg.budget_classes)
     acc = torch.zeros((n_tiles, rt, 3), dtype=f32, device=dev)
     start = 0
-    for cnt, (_, kb) in zip(counts, cfg.budget_classes):
+    for cnt, (_, kb), band in zip(counts, cfg.budget_classes, bands):
         sel = order[start:start + cnt]
         start += cnt
         k_eff = min(kb, kcap)
         loc, val = tiling.shortlist(keys[sel], k_eff)
         ids_c = loc if id_map is None else torch.gather(id_map[sel], 1, loc)
-        acc[sel] = fused_block(ids_c, val, k_eff, px0[sel], py0[sel], tile_ids[sel])
+        acc[sel] = fused_block(ids_c, val, k_eff, px0[sel], py0[sel], tile_ids[sel],
+                               band)[0]
     return acc / spp
+
+
+def refine_select(score: torch.Tensor, m: int):
+    """The m tiles of largest ``score`` [T], ties to the lower tile index
+    (as ``jax.lax.top_k``; the counts tie often and the order decides which
+    tiles are refined): (score_sel [m], tile ids [m])."""
+    sel = torch.argsort(-score, stable=True)[:m]
+    return score[sel], sel
+
+
+def _refine(state, cfg, acc, beta0, cl_valid, k_cl, strips, origin, axis, cos_half,
+            px0, py0, tile_ids, fused_block):
+    """Residual-driven refinement (rf_tiled.py:1111-1149): the tiles whose
+    cluster list was full, scored by their first-sample rays still above
+    beta_kill, are re-culled with a refine_factor-times-larger budget (against
+    their strip's candidates after the two-level cull, else against every
+    cluster) and re-composited; the worst max(1, round(T f)) tiles keep the
+    new result where their score is positive. Returns the new [T, RT, 3]."""
+    n_tiles = acc.shape[0]
+    m = max(1, int(round(n_tiles * cfg.refine_fraction)))
+    trunc = torch.sum(beta0 > cfg.beta_kill, dim=1)
+    score = torch.where(cl_valid.sum(dim=-1) >= k_cl, trunc, torch.zeros_like(trunc))
+    score_sel, sel_t = refine_select(score, m)
+    k2 = min(cfg.refine_factor * k_cl, state.cull_centers.shape[0])
+    if strips is not None:
+        cl_c, cc = strips
+        strip_of = sel_t // cfg.coarse_group
+        keys_r = tiling.cone_cull_keys_cols(
+            origin, axis[sel_t], cos_half[sel_t],
+            cc[strip_of, 0], cc[strip_of, 1], cc[strip_of, 2], cc[strip_of, 3],
+        )
+        k2 = min(k2, keys_r.shape[1])
+        loc_r, cl_valid_r = tiling.shortlist(keys_r, k2)
+        cl_ids_r = torch.gather(cl_c[strip_of], 1, loc_r)
+    else:
+        keys_r = tiling.cone_cull_keys_batch(
+            origin, axis[sel_t], cos_half[sel_t], state.cull_centers, state.cull_radii
+        )
+        cl_ids_r, cl_valid_r = tiling.shortlist(keys_r, k2)
+    acc_r, _ = fused_block(cl_ids_r, cl_valid_r, k2, px0[sel_t], py0[sel_t],
+                           tile_ids[sel_t])
+    use_r = (score_sel > 0)[:, None, None]
+    return acc.index_copy(0, sel_t, torch.where(use_r, acc_r, acc[sel_t]))
 
 
 def _neutral_feature(device=None) -> torch.Tensor:
