@@ -10,9 +10,13 @@ the hand-written CUDA compositor kernels on the way, in phases that each
 print one line:
 
 1. probe: the card, its power limit, TF32 off;
-2. build: nvcc builds the eight sources of csrc/ (composite3_fwd/_bwd,
-   ffwalk, composite_fwd/_bwd, composite2_fwd/_bwd, clone) from this
-   checkout, one process each, started together;
+2. build: nvcc builds the nine sources of csrc/ (composite3_fwd/_bwd, the
+   forward's timing ablations composite3_fwd_abl, ffwalk,
+   composite_fwd/_bwd, composite2_fwd/_bwd, clone) from this checkout, one
+   process each, started together, and prints ptxas's registers, stack and
+   spill bytes for every instantiation of the v3 compositors (k, band,
+   threads); it fails if an unbanded k = 4 instantiation of either at 256
+   or 512 threads spills;
 3. kernel: the forward kernel against its plain PyTorch version at the
    headline shapes (T=64 tiles, R=512 rays, S=2048 and 8192 columns, seg
    256, k=4, bf16 SH, compaction on and off), with CUDA-event timings;
@@ -23,7 +27,10 @@ print one line:
    a fixed 4096-pixel subsample (PSNR);
 6. bwd_kernel: the backward kernel against its plain version on synthetic
    inputs (T=64, R=256 and 512, S=2048, seg 256, k=4, compaction on and
-   off) with numpy-made cotangents;
+   off, unbanded and at order_band 8, with the banded forward checked
+   beside it) with numpy-made cotangents; here and wherever the backward
+   is checked (phases 7, 19 and 20), a second launch on the same inputs
+   must give bit-identical gpf and gsh;
 7. train_step: the full-width train step (launch counts, finite nonzero
    gradients of all five parameters, step time, peak memory), then the
    forward and the backward kernel against their plain versions on that
@@ -83,8 +90,10 @@ compositors:
     4S / S time ratio, which must reach 1.5 (a probe whose reads were
     optimised away would not grow);
 17. profile_rf: the profiler in-process at its defaults plus the stage
-    stops, the coarse cull, the probe and the segment statistics (every
-    stage line printed, each kernel of its path launched), then one frame
+    stops, the coarse cull, the probe, the segment statistics and the
+    forward's eight timing ablations (abl_*: each stage's time is printed;
+    their results are wrong by design and nothing checks them; every stage
+    line printed, each kernel of its path launched), then one frame
     of its configuration (refine 0.125) with every compositor launch, base
     and refine pass, replayed against the plain version, and its PSNR
     against phase 5's exact subsample beside refine 0 (it must not drop);
@@ -95,7 +104,16 @@ compositors:
     subsample, which must exceed the same frame's unbanded;
 19. band_train_step: phase 7's step with order_band 16, its forward and
     backward launches replayed (the backward against the f64 yardstick,
-    compare_grads).
+    compare_grads);
+20. quat_drift_step: phase 7's step with compaction off and every
+    quaternion scaled to norm 0.9 (pack_fused_features does not normalise
+    them, so each ellipsoid outgrows row 14's radius): the kernels' warp
+    cull alone stands between a column and the rays. Both kernels must
+    give bit-identical outputs with row 14 as packed and set to +inf (no
+    cull: a dropped hit would change them), and the forward must agree
+    with its plain version as in phase 19; the backward's comparison with
+    its plain version is printed (replay_train_step says why it is not
+    gated here).
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -112,6 +130,7 @@ import inspect
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -224,10 +243,14 @@ TILE_CHUNK = 128
 CLONE = dict(T=1024, R=256, S=2048, rows=12, seg=256)
 # the profiler's stages run in phase 17: its defaults and the rest
 PROFILER_STAGES = ("full,nokernel,cull,gather,kernel,in_cull,in_pack,in_gather_pf,"
-                   "in_gather,in_cull_nosel,cull_coarse,clone,segstats")
+                   "in_gather,in_cull_nosel,cull_coarse,clone,segstats,"
+                   "abl_nodepth,abl_noemis,abl_notrans,abl_nocum,abl_noop,abl_noop2,"
+                   "abl_static,abl_fori")
 # bench.py's order-band quality points (bench.py:956-980; BENCH_BAND_POINTS
 # "16:4096,16:8192"): one budget, compaction, cluster sort, band 16
 BAND_POINTS = (4096, 8192)
+# the band of phase 6's synthetic checks: band_classes' and the CPU tests'
+BAND_SYNTH = 8
 BAND = dict(
     max_depth=128, tile_pixels=256, segment=256, cluster_size=16, backend="fused",
     early_exit=True, coarse_group=4, coarse_factor=8, super_group=4, refine_fraction=0.0,
@@ -527,14 +550,49 @@ def compare_grads12(got, plain, yard) -> dict:
     return out
 
 
+def ptxas_table(log: str) -> list:
+    """Registers, stack and spill bytes per compiled kernel from nvcc's
+    ``-Xptxas -v`` log, with the template arguments of the v3 compositors'
+    instantiations (fwd3_kernel: k, banded, threads, ablation; bwd3_kernel:
+    k, banded, threads; banded is 0 or 1)."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            cur = m.group(1)
+            if not rows or rows[-1]["function"] != cur:
+                inst = re.search(r"(fwd3_kernel|bwd3_kernel)I((?:L[ib](?:n?\d+)E)+)E", cur)
+                rows.append(dict(function=cur, kernel=inst.group(1) if inst else None,
+                                 args=[int(x.replace("n", "-")) for x in
+                                       re.findall(r"L[ib](n?\d+)E", inst.group(2))] if inst else None))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and rows:
+            rows[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    return [r for r in rows if "registers" in r]
+
+
 @torch.no_grad()
 def check_bwd(composite3, args, kw, compact, reps=10):
     """The backward kernel on ``args`` = (d8, pf, sh3, n_seg_t, g_l,
     g_beta) against its plain version (f32, and f64 as the yardstick; both
-    walk the kernel's stream), with CUDA-event times of both."""
+    walk the kernel's stream), with CUDA-event times of both. A second
+    launch on the same inputs must give bit-identical gpf and gsh (the
+    kernel sums in a fixed order, with no atomics): else it fails."""
     d8, pf, sh3, n_seg_t, g_l, g_beta = args
     kw = dict(kw, compact=compact)
     got = composite3.composite_tiles3_bwd(*args, **kw)
+    again = composite3.composite_tiles3_bwd(*args, **kw)
+    if not (torch.equal(got[0], again[0])
+            and torch.equal(got[1].view(torch.int16), again[1].view(torch.int16))):
+        fail(f"two launches of the backward kernel (order_band {kw.get('order_band', 0)}, "
+             f"compact {compact}) on the same inputs gave gpf / gsh that are not bit-identical")
+    del again
     plain = composite3.composite_tiles3_bwd_reference(*args, **kw)
     yard, _ = composite3.composite_tiles3_bwd_reference(
         d8.double(), pf.double(), sh3, n_seg_t, g_l, g_beta, **kw
@@ -1114,18 +1172,60 @@ def band_frames(composite3, rf_tiled, scene, camera, exact, sel, details) -> lis
     return out
 
 
-def band_train_step(composite3, camera, dev, details) -> dict:
-    """Phase 19: phase 7's train step with order_band 16: launch counts,
-    finite nonzero gradients, step time, then its forward and backward
-    launches' own inputs replayed against the plain versions (the backward
-    held to the f64 yardstick by compare_grads)."""
+@torch.no_grad()
+def cull_identity(composite3, args, kw) -> dict:
+    """Both kernels on the backward's recorded ``args`` = (d8, pf, sh3,
+    n_seg_t, g_l, g_beta) as packed and again with row 14 set to +inf,
+    which makes every column's cull radius infinite: no warp cull (the
+    radius is all that the culls read of row 14; compaction must be off).
+    A cull that drops no hit leaves every output bit-identical: the
+    forward's per-ray sums run in stream order and the backward's column
+    sums in a fixed order."""
+    d8, pf, sh3, n_seg_t, g_l, g_beta = args
+    if kw["compact"]:
+        raise ValueError("cull_identity needs compaction off (it reads row 14 too)")
+    pf_inf = pf.clone()
+    pf_inf[:, 14] = float("inf")
+    out = {}
+    for tag, p in (("cull", pf), ("no_cull", pf_inf)):
+        out[tag] = (*composite3.forward3(d8, p, sh3, n_seg_t, **kw),
+                    *composite3.composite_tiles3_bwd(d8, p, sh3, n_seg_t, g_l, g_beta, **kw))
+    del pf_inf
+    names = ("L", "beta", "walked", "live", "gpf", "gsh")
+    res = {n: bool(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                               b.view(torch.int16) if b.dtype == torch.bfloat16 else b))
+           for n, a, b in zip(names, out["cull"], out["no_cull"])}
+    res["ok"] = all(res.values())
+    return res
+
+
+def replay_train_step(composite3, camera, dev, details, name, quat_norm=None,
+                      **cfg_kw) -> dict:
+    """Phase 7's train step with ``cfg_kw`` over TRAIN (phase 19: order_band
+    16; phase 20: compaction off, every quaternion scaled to ``quat_norm``):
+    launch counts, finite nonzero gradients, step time, then its forward and
+    backward launches' own inputs replayed against the plain versions (the
+    backward held to the f64 yardstick by compare_grads). Prints phase
+    ``name``.
+
+    With ``quat_norm`` (phase 20) the gate on the warp cull is
+    :func:`cull_identity` and the forward's check; the backward's
+    comparison with the plain version is printed, not gated: on these
+    inputs one ray's weight lands on log(beta_kill) in the plain version's
+    cumsum and just above it in the kernels' sequential sum (a KILL_FLIP,
+    which the forward's check allows), and that moves a few gpf elements
+    of one tile past the band, identically with and without the cull."""
     from volprim_tpu_torch import interop, train
     from volprim_tpu_torch.models import rf_tiled
     from volprim_tpu_torch.scene import synthetic
 
     t_phase = time.perf_counter()
-    cfg = rf_tiled.RFTiledConfig(**TRAIN, order_band=16)
+    cfg = rf_tiled.RFTiledConfig(**dict(TRAIN, **cfg_kw))
     base = synthetic.make_scene(N_PRIMS, device=dev)
+    if quat_norm is not None:
+        q = base.quats
+        base = dataclasses.replace(
+            base, quats=q * (quat_norm / torch.linalg.vector_norm(q, dim=-1, keepdim=True)))
     params = {
         "centers": base.centers, "scales": base.scales, "quats": base.quats,
         "opacities": base.attrs["opacities"], "sh_coeffs": base.attrs["sh_coeffs"],
@@ -1147,12 +1247,12 @@ def band_train_step(composite3, camera, dev, details) -> dict:
                                 lambda: step(0)),
     )
     if (n_fwd, n_bwd) != (1, 1) or (len(rec_f), len(rec_b)) != (1, 1):
-        fail(f"the band train step launched (forward, backward) {(n_fwd, n_bwd)} times")
+        fail(f"{name}: the step launched (forward, backward) {(n_fwd, n_bwd)} times")
     grad_max = {}
     for k in interop.TRAIN_KEYS:
         g = params[k].grad
         if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0):
-            fail(f"band train step: the gradient of {k} is missing, not finite or all zero")
+            fail(f"{name}: the gradient of {k} is missing, not finite or all zero")
         grad_max[k] = float(g.abs().max())
     torch.cuda.reset_peak_memory_stats()
     seeds = iter(range(1, 100))
@@ -1161,7 +1261,7 @@ def band_train_step(composite3, camera, dev, details) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     del params, base
     f_row = check_fwd3(composite3, rec_f[0])
-    phase("fwd_kernel_on_band_step_inputs", **f_row)
+    phase(f"fwd_kernel_on_{name}_inputs", **f_row)
     d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth, beta_kill, sh_k, compact, band = (
         rec_b[0])
     del rec_f, rec_b
@@ -1171,16 +1271,24 @@ def band_train_step(composite3, camera, dev, details) -> dict:
     cmp_, bwd_ms, bwd_plain_ms = check_bwd(composite3, (d8, pf, sh3, n_seg_t, g_l, g_beta),
                                            bkw, compact)
     rows = cmp_["gpf"].pop("rows")
+    ident = None
+    if quat_norm is not None:
+        ident = cull_identity(composite3, (d8, pf, sh3, n_seg_t, g_l, g_beta),
+                              dict(bkw, compact=compact))
     res = dict(
-        launches_fwd=n_fwd, launches_bwd=n_bwd, order_band=band, loss=float(loss0),
+        launches_fwd=n_fwd, launches_bwd=n_bwd, order_band=band, compact=bool(compact),
+        quat_norm=quat_norm, cull_identity=ident, loss=float(loss0),
         step_ms=step_ms, step_ms_min=times[0], step_ms_max=times[-1], peak_mem_gib=peak,
         grad_max_abs=grad_max, fwd_kernel_ms=f_row["ms"], bwd=cmp_, ms=bwd_ms,
         plain_ms=bwd_plain_ms, seconds=round(time.perf_counter() - t_phase, 2), **w,
     )
-    phase("band_train_step", **res)
-    details["band_train_step"] = dict(res, times=times, bwd_rows=rows, fwd=f_row)
-    if not (f_row["ok"] and cmp_["ok"]):
-        fail("band train step: a kernel disagrees with its plain version on the step's inputs")
+    phase(name, **res)
+    details[name] = dict(res, times=times, bwd_rows=rows, fwd=f_row)
+    if ident is not None and not ident["ok"]:
+        fail(f"{name}: the warp cull dropped a hit (outputs with and without it differ: "
+             f"{ident})")
+    if not (f_row["ok"] and (cmp_["ok"] or ident is not None)):
+        fail(f"{name}: a kernel disagrees with its plain version on the step's inputs")
     return dict(res, fwd=f_row)
 
 
@@ -1220,19 +1328,31 @@ def main() -> None:
 
     # ---- 2. build: one nvcc per source, all started together ------------
     t0 = time.perf_counter()
-    names = ("composite3_fwd", "composite3_bwd", "ffwalk", "composite_fwd",
-             "composite_bwd", "composite2_fwd", "composite2_bwd", "clone")
+    names = ("composite3_fwd", "composite3_bwd", "composite3_fwd_abl", "ffwalk",
+             "composite_fwd", "composite_bwd", "composite2_fwd", "composite2_bwd", "clone")
     _build.build(*names)
     for name in names:
         _build.load(name)
     seconds = round(time.perf_counter() - t0, 2)
+    spilled = []
     for name in names:
         info = _build.build_info.get(name, {})
-        ptxas = [ln.strip() for ln in info.get("log", "").splitlines()
-                 if "registers" in ln or "spill" in ln]
+        table = ptxas_table(_build.build_log(name))
         phase("build", kernel=name, seconds=seconds,
-              nvcc_seconds=round(info.get("seconds", 0.0), 2), ptxas=ptxas)
-        details.setdefault("build", {})[name] = dict(seconds=seconds, ptxas=ptxas)
+              nvcc_seconds=round(info.get("seconds", 0.0), 2), instantiations=len(table))
+        for row in table:
+            if row["kernel"]:  # the v3 compositors: one line per instantiation
+                phase("ptxas", source=name, kernel=row["kernel"], args=row["args"],
+                      registers=row["registers"], spill_stores=row.get("spill_stores"),
+                      spill_loads=row.get("spill_loads"), stack=row.get("stack"))
+            # the unbanded k = 4 path kernels at 256 and 512 threads must not spill
+            if (name in ("composite3_fwd", "composite3_bwd") and row["args"]
+                    and row["args"][:2] == [4, 0] and row["args"][2] in (256, 512)
+                    and row.get("spill_stores", 0)):
+                spilled.append(row)
+        details.setdefault("build", {})[name] = dict(seconds=seconds, ptxas=table)
+    if spilled:
+        fail(f"unbanded k=4 compositor instantiations spill: {spilled}")
 
     # ---- 3. kernel vs plain version at the headline shapes ---------------
     checks = []
@@ -1357,22 +1477,33 @@ def main() -> None:
     details["frame_kernel_work"] = fwd_work
 
     # ---- 6. backward kernel vs plain version, synthetic inputs ------------
-    bwd_checks = []
+    bwd_checks, band_checks = [], []
     kw = dict(seg=256, extent2=9.0, max_depth=128, beta_kill=0.01, sh_k=4)
     for r in (256, 512):
         inputs = composite3.synthetic_tiles(64, r, 2048, 256, 4, seed=r, device=dev)
         rng = np.random.default_rng(r)
         cot = [torch.from_numpy(rng.normal(0.0, 1.0, shape).astype(np.float32)).to(dev)
                for shape in ((64, r, 3), (64, r))]
-        for compact in (False, True):
-            cmp_, ms, plain_ms = check_bwd(composite3, (*inputs, *cot), kw, compact, 20)
-            row = dict(T=64, R=r, S=2048, compact=compact, **cmp_, ms=ms, plain_ms=plain_ms)
+        for compact, band in ((False, 0), (True, 0), (False, BAND_SYNTH), (True, BAND_SYNTH)):
+            if band:  # the forward, banded: its only check off band 16
+                f_row = check_fwd3(composite3, (*inputs, kw["seg"], kw["extent2"], kw["max_depth"],
+                                                 kw["beta_kill"], kw["sh_k"], compact, band))
+                phase("fwd_kernel_banded", R=r, **f_row)
+                band_checks.append(f_row)
+                if not f_row["ok"]:
+                    fail(f"banded forward kernel disagrees with its plain version at R={r} "
+                         f"compact={compact} order_band={band}")
+            cmp_, ms, plain_ms = check_bwd(composite3, (*inputs, *cot),
+                                           dict(kw, order_band=band), compact, 20)
+            row = dict(T=64, R=r, S=2048, compact=compact, order_band=band, **cmp_, ms=ms,
+                       plain_ms=plain_ms)
             bwd_checks.append(row)
             phase("bwd_kernel", **row)
             if not cmp_["ok"]:
                 fail(f"backward kernel disagrees with its plain version at R={r} "
-                     f"compact={compact}")
+                     f"compact={compact} order_band={band}")
     details["bwd_kernel_checks"] = bwd_checks
+    details["fwd_kernel_banded_checks"] = band_checks
 
     # ---- 7. the train step at full width ---------------------------------
     from volprim_tpu_torch import interop, train
@@ -1695,7 +1826,11 @@ def main() -> None:
     clone_row = clone_check(clone, dev, details)
     prof = profiler_phase(composite3, clone, rf_tiled, scene, camera, exact, sel, details)
     band = band_frames(composite3, rf_tiled, scene, camera, exact, sel, details)
-    band_step = band_train_step(composite3, camera, dev, details)
+    band_step = replay_train_step(composite3, camera, dev, details, "band_train_step",
+                                  order_band=16)
+    # ---- 20. quaternions off unit length: the warp cull's radius ----------
+    drift_step = replay_train_step(composite3, camera, dev, details, "quat_drift_step",
+                                   quat_norm=0.9, kernel_compact=False)
 
     if args.out:
         busy_ms, split = device_profile(
@@ -1724,10 +1859,12 @@ def main() -> None:
         [c[x]["max_abs"] for c in checks + path_checks + [fwd_step_row]
          for x in ("L", "beta")]
         + [b["max_abs_err"] for b in band]
-        + [r_[x]["max_abs"] for r_ in prof["rows"] + [band_step["fwd"]] for x in ("L", "beta")]
+        + [r_[x]["max_abs"] for r_ in prof["rows"] + [band_step["fwd"], drift_step["fwd"]]
+           + band_checks for x in ("L", "beta")]
     )
     worst_bwd = max(
-        c[x]["max_abs"] for c in bwd_checks + [details["train_step"]["bwd"], band_step["bwd"]]
+        c[x]["max_abs"] for c in bwd_checks + [details["train_step"]["bwd"], band_step["bwd"],
+                                               drift_step["bwd"]]
         for x in ("gpf", "gsh")
     )
     fwd_bound = sum(w["fwd_bound_ms"] for w in fwd_work)

@@ -115,7 +115,8 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     not only when the .cu file does."""
     from volprim_tpu_torch.kernels import _build
 
-    for name in ("composite3_fwd.cu", "composite3_bwd.cu", "composite3_common.cuh"):
+    for name in ("composite3_fwd.cu", "composite3_fwd.cuh", "composite3_bwd.cu",
+                 "composite3_common.cuh"):
         (tmp_path / name).write_bytes((_build.CSRC_DIR / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
     assert [p.name for p in _build._sources("composite3_bwd")] == [

@@ -3,9 +3,10 @@ stage stops of its rf_tiled frame, on the CPU at a small size.
 
 - The tool runs every ported stage with ``--cpu`` on an 8192-primitive
   synthetic scene and a 64x64 film (its module constants shrunk), prints a
-  line per stage and the summary, and refuses what is not ported (the
-  ``abl_*`` stages, ``--feat_major``, ``--kernel_batch 2``) and a run
-  without a card unless ``--cpu`` is given.
+  line per stage and the summary, and refuses what is not ported
+  (``--feat_major``, ``--kernel_batch 2``), the ``abl_*`` stages with
+  ``--cpu`` (they time variants of the CUDA kernel) and a run without a
+  card unless ``--cpu`` is given.
 - ``rf_tiled._DEBUG_STOP`` ("cull", "pack", "gather_pf", "gather") returns
   the same probe values as JAX's on the same scene and configuration (the
   profiler's, with refinement), within 1e-5 relative: the probes are sums
@@ -54,7 +55,7 @@ def test_profiler_runs_every_ported_stage_on_cpu(capsys):
              ["--stages", "kernel,nosuch"]],
 )
 def test_unported_options_exit(argv):
-    with pytest.raises(SystemExit, match="ROADMAP|unknown stage"):
+    with pytest.raises(SystemExit, match="ROADMAP|unknown stage|needs the card"):
         profile_rf.main(["--cpu"] + argv)
 
 

@@ -11,34 +11,40 @@
 // g_beta [T, R], it writes the adjoints of the packed columns
 // gpf [T, 16, S] f32 (rows 0-12: M/2, u, w, opacity; rows 13-15 are 0, as
 // the TPU kernel's stable-q rows) and of the SH table gsh [T, 3k, S] bf16.
-// Per tile (one block) and ray (one thread):
+// Per tile (one block of NT = 256, 512 or 1024 threads) and ray (one
+// thread):
 //
-//   1. Forward pass over the segments: the forward kernel's walk without
+//   1. Carry pass over the segments: the forward kernel's walk without
 //      emission, storing each ray's (log beta, hit count) at each segment
 //      start in a global scratch [T, n_seg, R] (the TPU kernel's
 //      lb_scratch / cnt_scratch). It ends with beta, so g_lb = g_beta beta.
-//   2. Segments in reverse. A ray cannot hold a segment's per-column
-//      values, so it walks the segment twice forward from its stored carry:
-//      walk A sums g_lw = g_w w over the segment (g_w = g_L . max(e, 0));
-//      walk B takes, at each hit,
-//        g_logt = g_lb_next + (sum_seg g_lw - prefix_incl g_lw)
-//      (the two sums in f64, then rounded to f32)
-//        g_alpha = [alive] g_w exp(lw) - g_logt / (1 - alpha)
-//        g_raw = [raw < 0.9999] g_alpha,  g_opac = g_raw exp(-q)
-//        g_q = -[q > 0] g_raw opac exp(-q)
-//      and the stable-q adjoints of q = p^T (M/2) p with p = w + t* d,
-//      t* = -b / a (six M rows, three w rows, then g_a and g_b into the M
-//      and u rows), plus g_sh[ch][k] = basis_f32[k] [e_raw > 0] g_L[ch] w.
+//   2. Segments in reverse, each in two phases:
+//      A. one walk of the segment from the ray's stored carry: at each hit
+//         under the cap it sets the hit's bit in the ray's hit mask (shared
+//         memory) and sums g_lw = g_w w in f64 (g_w = g_L . max(e, 0));
+//      B. the ray's recorded hits, column chunk by column chunk, in order:
+//         alpha, w and the prefix of g_lw are taken again from the same
+//         sequence of operations (only at the hits, no pair is tested),
+//           g_logt = g_lb_next + (sum_seg g_lw - prefix_incl g_lw)
+//         (the two sums in f64, then rounded to f32),
+//           g_alpha = [alive] g_w exp(lw) - g_logt / (1 - alpha)
+//           g_raw = [raw < 0.9999] g_alpha,  g_q = -[q > 0] g_raw opac exp(-q)
+//           g_p = g_q dq/dp,  g_t = g_p . d,  g_b = -g_t / a
+//         and the hit leaves seven scalars in shared memory: g_q, t*, g_b,
+//         g_raw exp(-q) and g_e = [e > 0] g_L w per channel.
+//      Then per chunk column one warp sums the block's rays: its lanes take
+//      the hits (the i-th hit of the column to lane i mod 32, rays in
+//      order), form the 13 + 3k adjoint rows from the scalars
+//        rows 0-5  g_q p_i p_j + F6_i(d) g_a  (g_a = g_b t*)
+//        rows 6-8  d g_b,  rows 9-11  g_p,  row 12  g_raw exp(-q)
+//        SH        basis_f32[k] g_e[ch]
+//      with p = w + t* d formed again, and sums them in a fixed order (each
+//      lane its hits, then over lanes through shared memory). gsh is
+//      rounded to bf16 once, as the TPU kernel does. Nothing is summed
+//      with atomics, so gpf and gsh are bit-reproducible.
 //      Then g_lb_prev = g_lb_next + sum_seg g_lw.
-//   3. Per column, the contributions of the block's rays are summed: a warp
-//      skips a column none of its rays hit (__any_sync), else it reduces
-//      its 13 + 3k values with shuffles and one lane adds them into a
-//      [seg][13 + 3k] f32 shared accumulator with shared-memory atomics. At
-//      segment end the accumulator is written out, gsh rounded to bf16
-//      once, as the TPU kernel does. The warps' atomics land in a varying
-//      order, so gpf and gsh vary from run to run in the last bits of f32.
 //
-// With compaction both walks visit the tile's packed stream of survivors
+// With compaction both passes visit the tile's packed stream of survivors
 // (compact_stream, identical to the forward's) and a column's adjoint goes
 // to its tile slot; every other slot is written as 0 (a dropped column has
 // alpha = 0 for every ray of the tile, so its adjoint is 0). With the order
@@ -46,22 +52,22 @@
 // g_logt also collects the transposed band,
 //   g_logt_j += sum_{s=1..B} [tkey_j < tkey_{j-s}] g_lw_{j-s}
 //                          - [tkey_j > tkey_{j+s}] g_lw_{j+s}
-// (the keys get no gradient): walk A finishes a hit's weight B lanes after
-// it, walk B its adjoints 2B lanes after it, from a window of the ray's
-// hits (composite3_common.cuh); walk B's lanes still advance together
-// across the warp, so the column reduction is unchanged.
+// (the keys get no gradient): phase A finishes a hit's weight B lanes after
+// it, phase B its weight again and its adjoints 2B lanes after it, from a
+// window of the ray's hits (composite3_common.cuh).
 //
 // Every hit, cap, band and beta_kill decision is the forward kernel's: both
 // evaluate the pair with composite3_common.cuh and are built with
-// -fmad=false, and the carries are the same sequential f32 sums of
-// log1p(-alpha).
+// -fmad=false, the carries are the same sequential f32 sums of
+// log1p(-alpha), and both passes walk a warp's survivors of the same warp
+// cull, which drops only columns none of its rays can hit.
 //
-// What bounds it on this card: FP32 and SFU issue per (ray, column) pair,
-// three walks of the pair math instead of the forward's one, and the
-// cross-ray reduction of every hit column, not device-memory bytes (a tile
-// reads its columns three times and writes its adjoints once).
-// This first version is plain: one thread per ray, shuffle reductions,
-// shared atomics.
+// What bounds it on this card: FP32 and SFU issue per (ray, column) pair
+// and the cross-ray sum of every hit column, not device-memory bytes (a
+// tile reads its columns twice and writes its adjoints once). The design
+// walks the pairs twice (the carry pass and phase A; the old design three
+// times), culls them per warp, stages each segment with cp.async double
+// buffered, and sums a column once per block instead of once per warp.
 
 #include "composite3_common.cuh"
 
@@ -69,213 +75,228 @@ namespace {
 
 using namespace composite3;
 
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kScal = 7;  // scalars a hit leaves for the column sum
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
+// columns per phase-B chunk: the scalars [CH][7][NT] take 28 KB
+template <int NT>
+__host__ __device__ constexpr int chunk_cols() {
+  return 1024 / NT;
 }
 
-// The ray's adjoints of one pair's 13 column rows, from g_alpha:
-// g_raw = [raw < 0.9999] g_alpha, g_opac = g_raw exp(-q),
-// g_q = -[q > 0] g_raw opac exp(-q), then the stable-q adjoints of
-// q = p^T (M/2) p with p = w + t* d, t* = -b / a.
-__device__ __forceinline__ void pair_adjoint_rows(const float4 m0,
-                                                  const float4 m1,
-                                                  const Pair& p,
-                                                  const Ray& ray, float opac,
-                                                  float dens, float raw,
-                                                  float g_alpha, float* acc) {
+// blocks per SM the register budget is sized for
+template <int NT>
+__host__ __device__ constexpr int bwd_min_blocks() {
+  return NT == 256 ? 2 : 1;
+}
+
+// g_p = g_q dq/dp for q = p^T (M/2) p in the halved rows: the ray's
+// phase B and the column sum form it alike.
+__device__ __forceinline__ void grad_p(const float4 m0, const float4 m1,
+                                       float px, float py, float pz, float g_q,
+                                       float& g_px, float& g_py, float& g_pz) {
+  g_px = g_q * __fmaf_rn(2.0f * m0.x, px, __fmaf_rn(m0.w, py, m1.x * pz));
+  g_py = g_q * __fmaf_rn(2.0f * m0.y, py, __fmaf_rn(m0.w, px, m1.y * pz));
+  g_pz = g_q * __fmaf_rn(2.0f * m0.z, pz, __fmaf_rn(m1.x, px, m1.y * py));
+}
+
+// The seven scalars of one hit from its g_alpha (see the header note).
+__device__ __forceinline__ void hit_scalars(const float4 m0, const float4 m1,
+                                            const Pair& p, const Ray& ray,
+                                            float opac, float dens, float raw,
+                                            float g_alpha, float ge0, float ge1,
+                                            float ge2, float* s, int stride) {
   const float g_raw = raw < 0.9999f ? g_alpha : 0.0f;
   const float g_q = p.q_raw > 0.0f ? -(g_raw * opac * dens) : 0.0f;
-  // q = m11 px^2 + m22 py^2 + m33 pz^2 + m12_2 px py
-  //   + m13_2 px pz + m23_2 py pz
-  const float g_px = g_q * (2.0f * m0.x * p.px + m0.w * p.py + m1.x * p.pz);
-  const float g_py = g_q * (2.0f * m0.y * p.py + m0.w * p.px + m1.y * p.pz);
-  const float g_pz = g_q * (2.0f * m0.z * p.pz + m1.x * p.px + m1.y * p.py);
-  const float g_t = g_px * ray.dx + g_py * ray.dy + g_pz * ray.dz;
-  const float g_b = -g_t / p.a;
-  const float g_a = g_t * p.b / (p.a * p.a);
-  acc[0] = g_q * p.px * p.px + ray.f0 * g_a;
-  acc[1] = g_q * p.py * p.py + ray.f1 * g_a;
-  acc[2] = g_q * p.pz * p.pz + ray.f2 * g_a;
-  acc[3] = g_q * p.px * p.py + ray.f3 * g_a;
-  acc[4] = g_q * p.px * p.pz + ray.f4 * g_a;
-  acc[5] = g_q * p.py * p.pz + ray.f5 * g_a;
-  acc[6] = ray.dx * g_b;
-  acc[7] = ray.dy * g_b;
-  acc[8] = ray.dz * g_b;
-  acc[9] = g_px;
-  acc[10] = g_py;
-  acc[11] = g_pz;
-  acc[12] = g_raw * dens;
+  float g_px, g_py, g_pz;
+  grad_p(m0, m1, p.px, p.py, p.pz, g_q, g_px, g_py, g_pz);
+  const float g_t =
+      __fmaf_rn(g_px, ray.dx, __fmaf_rn(g_py, ray.dy, g_pz * ray.dz));
+  s[0] = g_q;
+  s[stride] = p.tp;
+  s[2 * stride] = -g_t / p.a;
+  s[3 * stride] = g_raw * dens;
+  s[4 * stride] = ge0;
+  s[5 * stride] = ge1;
+  s[6 * stride] = ge2;
 }
 
-// The ray's SH adjoints of one column: basis_f32[k] [e > 0] g_L[ch] w.
-template <int K>
-__device__ __forceinline__ void sh_adjoint_rows(const float* basis_f, float e0,
-                                                float e1, float e2, float gl0,
-                                                float gl1, float gl2, float w,
-                                                float* acc_sh) {
-  const float ge0 = e0 > 0.0f ? gl0 * w : 0.0f;
-  const float ge1 = e1 > 0.0f ? gl1 * w : 0.0f;
-  const float ge2 = e2 > 0.0f ? gl2 * w : 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    acc_sh[k] = basis_f[k] * ge0;
-    acc_sh[K + k] = basis_f[k] * ge1;
-    acc_sh[2 * K + k] = basis_f[k] * ge2;
-  }
-}
-
-// Adds the warp's rays' adjoints of one column into the shared accumulator
-// row dst (one shuffle reduction per row; the warp skips what none of its
-// rays has).
-template <int K>
-__device__ __forceinline__ void reduce_column(float* dst, const float* acc,
-                                              const float* acc_sh, bool has,
-                                              bool has_sh, int lane) {
-  if (__any_sync(kFull, has)) {
-#pragma unroll
-    for (int i = 0; i < 13; ++i) {
-      const float v = warp_sum(acc[i]);
-      if (lane == 0) atomicAdd(dst + i, v);
-    }
-  }
-  if (__any_sync(kFull, has_sh)) {
-#pragma unroll
-    for (int i = 0; i < 3 * K; ++i) {
-      const float v = warp_sum(acc_sh[i]);
-      if (lane == 0) atomicAdd(dst + 13 + i, v);
-    }
-  }
-}
-
-// Per-ray constants of the backward walks.
+// Per-ray constants of the backward.
 template <int K>
 struct RayB {
   Ray ray;
-  float basis[K], basis_f[K];
+  float basis[K];
   float gl0, gl1, gl2;
 };
 
-// Walks A and B of one stream segment with the order band. Each walk steps
-// its lanes j together across the warp; a hit enters the window at its
-// lane, its weight is finished B lanes later (stage 1: corr, lw, w, g_w,
-// g_lw, and in walk B the running f64 prefix of g_lw), and in walk B its
-// adjoints 2B lanes later (stage 2: the transposed band, g_alpha, rows),
-// reduced over the warp for that lane's column. Returns walk A's f64 sum
-// of g_lw (walk B returns 0).
-template <int K, bool ADJ>
-__device__ double walk_band(const float* s_pf, const __nv_bfloat16* s_sh,
-                            float* s_acc, int n, const RayB<K>& rb, float e2h,
-                            int max_depth, float log_kill, int band, float lb0,
-                            int cnt0, float g_lb, double sum_glw,
-                            BandWindow<true>& win) {
-  constexpr int kAcc = 13 + 3 * K;
-  const int lane_id = threadIdx.x & 31;
-  win.reset((ADJ ? 3 : 2) * band + 1);  // the hits of lanes [j - 3B, j]
-  float lb = lb0;
-  int cnt = cnt0;
-  bool done = cnt0 > max_depth;
-  double total = 0.0;  // walk A: the sum; walk B: the running prefix
-  const int n_steps = n + (ADJ ? 2 : 1) * band;
-  for (int j = 0; j < n_steps; ++j) {
-    // walk A's rays stop alone; walk B's warps stop together
-    if (!ADJ && done && win.i2 == win.tail) break;
-    if (ADJ && !__any_sync(kFull, !done || win.i3 < win.tail)) break;
-    // stage 0: the pair at lane j enters the window when it is a hit under
-    // the cap (alpha = 0 hits too: they have adjoints)
-    if (j < n && !done) {
-      const float4* rec = reinterpret_cast<const float4*>(s_pf + j * kFeat);
-      const float4 m0 = rec[0], m1 = rec[1], m2 = rec[2];
-      Pair p;
-      pair_peak(m0, m1, m2, rb.ray, p);
-      if (p.tp > 0.0f && pair_hit(m0, m1, m2, rb.ray, e2h, p)) {
-        float dens, raw;
-        const float alpha =
-            pair_alpha(s_pf[j * kFeat + kOpacRow], p.q, dens, raw);
-        if (!under_cap(alpha, cnt, max_depth)) {
-          done = true;  // this pair and every later one: alpha 0
-        } else {
-          const float logt = alpha > 0.0f ? log1pf(-alpha) : 0.0f;
-          win.push(BandHit{j, entry_key(p, e2h), logt, alpha, lb});
-          lb = lb + logt;
-        }
-      }
-    }
-    // stage 1: the hit at lane j - B has every partner in the window
-    if (win.i2 < win.tail && win.at(win.i2).lane == j - band) {
-      const BandHit& h = win.at(win.i2);
-      const float lw = h.lbe + band_corr(win, win.i2, band);
-      float g_w = 0.0f, w = 0.0f;
-      if (lw > log_kill) {
-        w = expf(lw) * h.alpha;
-        float e0, e1, e2;
-        emission<K>(rb.basis, s_sh + (j - band) * 3 * K, e0, e1, e2);
-        g_w = rb.gl0 * fmaxf(e0, 0.0f) + rb.gl1 * fmaxf(e1, 0.0f) +
-              rb.gl2 * fmaxf(e2, 0.0f);
-      }
-      const float g_lw = g_w * w;
-      total += static_cast<double>(g_lw);
-      // the suffix sum of g_lw is the total less the inclusive prefix,
-      // both in f64, as in the unbanded walk
-      win.grad[win.slot(win.i2)] = BandGrad{
-          lw, g_w, w, g_lw,
-          ADJ ? g_lb + static_cast<float>(sum_glw - total) : 0.0f};
-      ++win.i2;
-    }
-    if (!ADJ) {
-      win.drop(j + 1 - 2 * band, win.i2);
-      continue;
-    }
-    // stage 2: the hit at lane p = j - 2B has every partner's g_lw
-    const int pl = j - 2 * band;
-    if (pl < 0) continue;
-    float acc[13];
-    float acc_sh[3 * K];
-#pragma unroll
-    for (int i = 0; i < 13; ++i) acc[i] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 3 * K; ++i) acc_sh[i] = 0.0f;
-    bool has = false, has_sh = false;
-    if (win.i3 < win.i2 && win.at(win.i3).lane == pl) {
-      const BandGrad gr = win.grad[win.slot(win.i3)];
-      const float g_logt = band_adjoint(win, win.i3, band);
-      const float lw = gr.lw, g_w = gr.g_w, alpha = win.at(win.i3).alpha;
-      const bool alive = lw > log_kill;
-      const float* col = s_pf + pl * kFeat;
-      const float4* rec = reinterpret_cast<const float4*>(col);
-      const float4 m0 = rec[0], m1 = rec[1], m2 = rec[2];
-      Pair p;
-      pair_peak(m0, m1, m2, rb.ray, p);
-      pair_hit(m0, m1, m2, rb.ray, e2h, p);  // p and q (a hit, see stage 0)
-      const float opac = col[kOpacRow];
-      float dens, raw;
-      pair_alpha(opac, p.q, dens, raw);
-      const float g_alpha = (alive ? g_w * expf(lw) : 0.0f) +
-                            g_logt * (-1.0f / (1.0f - alpha));
-      pair_adjoint_rows(m0, m1, p, rb.ray, opac, dens, raw, g_alpha, acc);
-      has = true;
-      if (alive) {
-        float e0, e1, e2;
-        emission<K>(rb.basis, s_sh + pl * 3 * K, e0, e1, e2);
-        sh_adjoint_rows<K>(rb.basis_f, e0, e1, e2, rb.gl0, rb.gl1, rb.gl2,
-                           gr.w, acc_sh);
-        has_sh = true;
-      }
-      ++win.i3;
-    }
-    if (pl < n)
-      reduce_column<K>(s_acc + pl * kAcc, acc, acc_sh, has, has_sh, lane_id);
-    win.drop(j + 1 - 3 * band, win.i3);
-  }
-  return ADJ ? 0.0 : total;
+// g_w = g_L . max(e, 0) and the SH adjoints' g_e of a live hit at lane j
+template <int K>
+__device__ __forceinline__ float emission_grad(const RayB<K>& rb,
+                                               const Stage& cur, int j,
+                                               float w, float& ge0, float& ge1,
+                                               float& ge2) {
+  float e0, e1, e2;
+  emission<K>(rb.basis, cur.sh + j * 3 * K, cur.col[j] & 1, e0, e1, e2);
+  ge0 = e0 > 0.0f ? rb.gl0 * w : 0.0f;
+  ge1 = e1 > 0.0f ? rb.gl1 * w : 0.0f;
+  ge2 = e2 > 0.0f ? rb.gl2 * w : 0.0f;
+  return rb.gl0 * fmaxf(e0, 0.0f) + rb.gl1 * fmaxf(e1, 0.0f) +
+         rb.gl2 * fmaxf(e2, 0.0f);
 }
 
-template <int K, bool BAND>
-__global__ void __launch_bounds__(kMaxRays)
+// the pair at lane j of the staged segment, which is a hit: p, q, alpha
+struct HitPair {
+  float4 m0, m1, m2;
+  Pair p;
+  float opac, dens, raw, alpha;
+};
+
+__device__ __forceinline__ bool eval_pair(const Stage& cur, int j,
+                                          const Ray& ray, float e2h,
+                                          HitPair& h) {
+  const float* col = cur.pf + j * kFeat;
+  const float4* rec = reinterpret_cast<const float4*>(col);
+  h.m0 = rec[0];
+  h.m1 = rec[1];
+  h.m2 = rec[2];
+  pair_peak(h.m0, h.m1, h.m2, ray, h.p);
+  if (!(h.p.tp > 0.0f)) return false;
+  if (!pair_hit(h.m0, h.m1, h.m2, ray, e2h, h.p)) return false;
+  h.opac = col[kOpacRow];
+  h.alpha = pair_alpha(h.opac, h.p.q, h.dens, h.raw);
+  return true;
+}
+
+// the smallest recorded hit lane in [pos, last] of this thread's mask, or -1
+__device__ __forceinline__ int next_hit(const unsigned* s_hit, int NT,
+                                        int tid, int pos, int last) {
+  while (pos <= last) {
+    const int wd = pos >> 5;
+    unsigned m = s_hit[wd * NT + tid] & (kFull << (pos & 31));
+    const int hi = min(last, (wd << 5) + 31);
+    if (hi - (wd << 5) < 31) m &= (2u << (hi & 31)) - 1u;
+    if (m) return (wd << 5) + __ffs(m) - 1;
+    pos = (wd + 1) << 5;
+  }
+  return -1;
+}
+
+// the position of the k-th (0-based) set bit of m (which has more than k)
+__device__ __forceinline__ int nth_set_bit(unsigned m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = __popc(m & ((1u << s) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= s;
+      pos += s;
+    }
+  }
+  return pos;
+}
+
+// Sums column j of the chunk over the block's rays and writes its adjoint
+// rows to the tile slot `slot`: the warp's lanes take the column's hits in
+// ray order (hit i to lane i mod 32), form each hit's 13 + 3k rows from the
+// scalars `sc` ([7][NT], this column's) and add them in order; then the
+// lanes' sums are added over the lanes in order through shared memory (the
+// column's scalars, which are read by then). Every lane of the warp calls
+// it.
+template <int K, int NT>
+__device__ __forceinline__ void column_sum(const unsigned* s_hit,
+                                           unsigned* s_cm, float* sc,
+                                           const float* s_ray,
+                                           const float* rec, int j, int slot,
+                                           int S, float* gpft,
+                                           __nv_bfloat16* gsht, int lane) {
+  constexpr int kRows = 13 + 3 * K;
+  constexpr int kGroups = NT / 32;
+  // the column's hits: one ballot word per 32 rays, kept in s_cm
+  int total = 0;
+  const int wd = j >> 5, bit = j & 31;
+  for (int g = 0; g < kGroups; ++g) {
+    const unsigned b =
+        __ballot_sync(kFull, (s_hit[wd * NT + g * 32 + lane] >> bit) & 1u);
+    if (lane == 0) s_cm[g] = b;
+    total += __popc(b);
+  }
+  if (total == 0) return;  // the slot keeps its 0
+  __syncwarp();
+  const float4 m0 = reinterpret_cast<const float4*>(rec)[0];
+  const float4 m1 = reinterpret_cast<const float4*>(rec)[1];
+  const float4 m2 = reinterpret_cast<const float4*>(rec)[2];
+  float acc[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
+  for (int i = lane; i < total; i += 32) {
+    // the ray of the column's i-th hit
+    int k = i, r = 0;
+    for (int g = 0; g < kGroups; ++g) {
+      const unsigned m = s_cm[g];
+      const int c = __popc(m);
+      if (k < c) {
+        r = g * 32 + nth_set_bit(m, k);
+        break;
+      }
+      k -= c;
+    }
+    const float g_q = sc[r], tp = sc[NT + r], g_b = sc[2 * NT + r];
+    const float grd = sc[3 * NT + r];
+    const float ge[3] = {sc[4 * NT + r], sc[5 * NT + r], sc[6 * NT + r]};
+    const Ray ray = make_ray(s_ray[r], s_ray[NT + r], s_ray[2 * NT + r]);
+    float px, py, pz, g_px, g_py, g_pz;
+    peak_point(m2, tp, ray.dx, ray.dy, ray.dz, px, py, pz);
+    grad_p(m0, m1, px, py, pz, g_q, g_px, g_py, g_pz);
+    const float g_a = g_b * tp;
+    acc[0] += __fmaf_rn(g_q * px, px, ray.f0 * g_a);
+    acc[1] += __fmaf_rn(g_q * py, py, ray.f1 * g_a);
+    acc[2] += __fmaf_rn(g_q * pz, pz, ray.f2 * g_a);
+    acc[3] += __fmaf_rn(g_q * px, py, ray.f3 * g_a);
+    acc[4] += __fmaf_rn(g_q * px, pz, ray.f4 * g_a);
+    acc[5] += __fmaf_rn(g_q * py, pz, ray.f5 * g_a);
+    acc[6] += ray.dx * g_b;
+    acc[7] += ray.dy * g_b;
+    acc[8] += ray.dz * g_b;
+    acc[9] += g_px;
+    acc[10] += g_py;
+    acc[11] += g_pz;
+    acc[12] += grd;
+    float basis_f[K];
+    ray_basis_f32<K>(ray.dx, ray.dy, ray.dz, basis_f);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+        acc[13 + ch * K + kk] = __fmaf_rn(basis_f[kk], ge[ch],
+                                          acc[13 + ch * K + kk]);
+  }
+  // over the lanes, 32 rows at a time, through the column's scalar area
+  const int nl = min(total, 32);
+  float* red = sc;  // [32][33]
+  __syncwarp();
+#pragma unroll
+  for (int rb = 0; rb < kRows; rb += 32) {
+    if (lane < nl) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (rb + i < kRows) red[lane * 33 + i] = acc[rb + i];
+    }
+    __syncwarp();
+    const int row = rb + lane;
+    if (row < kRows) {
+      float v = 0.0f;
+      for (int i = 0; i < nl; ++i) v += red[i * 33 + lane];
+      if (row < 13)
+        gpft[static_cast<size_t>(row) * S + slot] = v;
+      else
+        gsht[static_cast<size_t>(row - 13) * S + slot] = __float2bfloat16_rn(v);
+    }
+    __syncwarp();
+  }
+}
+
+template <int K, bool BAND, int NT>
+__global__ void __launch_bounds__(NT, bwd_min_blocks<NT>())
     bwd3_kernel(const float* __restrict__ d8, const float* __restrict__ pf,
                 const __nv_bfloat16* __restrict__ sh3,
                 const int* __restrict__ n_seg_t,
@@ -284,22 +305,33 @@ __global__ void __launch_bounds__(kMaxRays)
                 int* __restrict__ cnt_scr, int* __restrict__ idx_scr,
                 float* __restrict__ gpf, __nv_bfloat16* __restrict__ gsh,
                 int R, int S, int seg, float e2h, int max_depth,
-                float log_kill, int compact, int band) {
-  constexpr int kAcc = 13 + 3 * K;  // accumulated rows per column
-  // shared memory: columns as [seg][16] f32 records, the adjoint
-  // accumulator [seg][13 + 3K] f32, the lanes' tile columns, one count per
-  // warp for the scan, SH as [seg][3K] bf16
+                float log_kill, int compact, int band, int nbuf,
+                int sh_async) {
+  constexpr int CH = chunk_cols<NT>();
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_pf = reinterpret_cast<float*>(smem);
-  float* s_acc = s_pf + seg * kFeat;
-  int* s_col = reinterpret_cast<int*>(s_acc + seg * kAcc);
-  int* s_warp = s_col + seg;
-  __nv_bfloat16* s_sh = reinterpret_cast<__nv_bfloat16*>(s_warp + 32);
-
+  // nbuf staging buffers (stage_at), the masks, the scan's counts and the
+  // warps' cones (mask_bytes), then the hit masks, the chunk's scalars, the
+  // rays' directions, the columns that some ray hits and the column sums'
+  // ballot words
+  const int nwords = (seg + 31) >> 5;
   const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned char* sp = smem + nbuf * stage_bytes<K>(seg);
+  unsigned* s_mask = reinterpret_cast<unsigned*>(sp) + warp * nwords;
+  int* s_warp =
+      reinterpret_cast<int*>(sp + align16(size_t(NT / 32) * nwords * 4));
+  float* s_cone = reinterpret_cast<float*>(s_warp + 32) + warp * 8;
+  sp += mask_bytes(seg, NT);
+  unsigned* s_hit = reinterpret_cast<unsigned*>(sp);  // [nwords][NT]
+  sp += align16(size_t(nwords) * NT * 4);
+  float* s_scal = reinterpret_cast<float*>(sp);  // [CH][7][NT]
+  sp += align16(size_t(CH) * kScal * NT * 4);
+  float* s_ray = reinterpret_cast<float*>(sp);  // [3][NT]
+  sp += align16(size_t(3) * NT * 4);
+  unsigned* s_colany = reinterpret_cast<unsigned*>(sp);  // [nwords]
+  sp += align16(size_t(nwords) * 4);
+  unsigned* s_cm = reinterpret_cast<unsigned*>(sp) + warp * (NT / 32);
+
   const int n_seg_all = S / seg;
   const float* d8t = d8 + static_cast<size_t>(t) * 8 * R;
   const float* pft = pf + static_cast<size_t>(t) * kFeat * S;
@@ -310,16 +342,17 @@ __global__ void __launch_bounds__(kMaxRays)
   int* cntt = cnt_scr + static_cast<size_t>(t) * n_seg_all * R;
   int* idx = compact ? idx_scr + static_cast<size_t>(t) * S : nullptr;
 
-  const bool ray_ok = tid < R;
+  const int ray_i = ray_of_thread(tid, R, NT);
+  const bool ray_ok = ray_i < R;
   float dx = 0.0f, dy = 0.0f, dz = 0.0f;
   RayB<K> rb;
   rb.gl0 = rb.gl1 = rb.gl2 = 0.0f;
   float gbeta = 0.0f;
   if (ray_ok) {
-    dx = d8t[tid];
-    dy = d8t[R + tid];
-    dz = d8t[2 * R + tid];
-    const size_t o = static_cast<size_t>(t) * R + tid;
+    dx = d8t[ray_i];
+    dy = d8t[R + ray_i];
+    dz = d8t[2 * R + ray_i];
+    const size_t o = static_cast<size_t>(t) * R + ray_i;
     rb.gl0 = g_l[3 * o + 0];
     rb.gl1 = g_l[3 * o + 1];
     rb.gl2 = g_l[3 * o + 2];
@@ -327,14 +360,15 @@ __global__ void __launch_bounds__(kMaxRays)
   }
   rb.ray = make_ray(dx, dy, dz);
   ray_basis<K>(dx, dy, dz, rb.basis);
-  ray_basis_f32<K>(dx, dy, dz, rb.basis_f);
   const Ray& ray = rb.ray;
-  const float gl0 = rb.gl0, gl1 = rb.gl1, gl2 = rb.gl2;
+  store_cone(warp_cone(ray, ray_ok), s_cone, lane);
+  s_ray[tid] = dx;
+  s_ray[NT + tid] = dy;
+  s_ray[2 * NT + tid] = dz;
 
   // every slot starts at 0: dead segments, dropped columns, rows 13-15
-  for (int i = tid; i < kFeat * S; i += nthreads) gpft[i] = 0.0f;
-  for (int i = tid; i < 3 * K * S; i += nthreads)
-    gsht[i] = __float2bfloat16_rn(0.0f);
+  for (int i = tid; i < kFeat * S; i += NT) gpft[i] = 0.0f;
+  for (int i = tid; i < 3 * K * S; i += NT) gsht[i] = __float2bfloat16_rn(0.0f);
 
   // the stream: the live segments' columns, or their survivors
   const int nseg = max(0, min(n_seg_t[t], n_seg_all));
@@ -342,11 +376,17 @@ __global__ void __launch_bounds__(kMaxRays)
   if (compact)
     n_cols = compact_stream(pft, S, n_cols, idx, s_warp, tile_cone(d8t, R));
   const int n_str = (n_cols + seg - 1) / seg;
+  auto seg_len = [&](int si) { return min(seg, n_cols - si * seg); };
 
-  // ---- 1. forward pass: per-segment carries -----------------------------
+  // ---- 1. carry pass: per-segment (log beta, count) ------------------------
   float log_beta = 0.0f;
   int count = 0;
   int nwalk = n_str;  // segments some ray of the tile enters under its cap
+  if (nbuf == 2 && n_str > 0) {
+    stage_async<K, false>(pft, sht, idx, stage_at<K>(smem, seg, 0), S, 0,
+                          seg_len(0), sh_async);
+    cp_async_commit();
+  }
   for (int si = 0; si < n_str; ++si) {
     const bool active = ray_ok && count <= max_depth;
     if (!__syncthreads_or(active)) {
@@ -354,159 +394,267 @@ __global__ void __launch_bounds__(kMaxRays)
       break;
     }
     if (ray_ok) {
-      lbt[si * R + tid] = log_beta;
-      cntt[si * R + tid] = count;
+      lbt[si * R + ray_i] = log_beta;
+      cntt[si * R + ray_i] = count;
     }
-    const int n = min(seg, n_cols - si * seg);
-    stage_stream<K>(pft, sht, idx, s_pf, nullptr, s_col, S, si * seg, n, tid,
-                    nthreads);
+    const Stage cur = stage_at<K>(smem, seg, nbuf == 2 ? si & 1 : 0);
+    const int n = seg_len(si);
+    if (nbuf == 2) {
+      if (si + 1 < n_str)
+        stage_async<K, false>(pft, sht, idx,
+                              stage_at<K>(smem, seg, (si + 1) & 1), S,
+                              (si + 1) * seg, seg_len(si + 1), sh_async);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      stage_async<K, false>(pft, sht, idx, cur, S, si * seg, n, sh_async);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    stage_radii(cur, n, e2h);
     __syncthreads();
-    if (active) {
-      for (int j = 0; j < n; ++j) {
-        const float4* rec = reinterpret_cast<const float4*>(s_pf + j * kFeat);
-        const float4 m0 = rec[0], m1 = rec[1], m2 = rec[2];  // rows 0-11
-        Pair p;
-        pair_peak(m0, m1, m2, ray, p);
-        if (!(p.tp > 0.0f)) continue;
-        if (!pair_hit(m0, m1, m2, ray, e2h, p)) continue;
-        float dens, raw;
-        const float alpha =
-            pair_alpha(s_pf[j * kFeat + kOpacRow], p.q, dens, raw);
-        if (!(alpha > 0.0f)) continue;
-        if (!under_cap(alpha, count, max_depth)) break;
-        log_beta = log_beta + log1pf(-alpha);
+    warp_survivors(s_cone, cur.pf, n, s_mask, lane);
+    if (!active) continue;
+    const int nw = (n + 31) >> 5;
+    bool capped = false;
+    for (int wd = 0; wd < nw && !capped; ++wd) {
+      unsigned m = s_mask[wd];
+      while (m) {
+        const int j = (wd << 5) + __ffs(m) - 1;
+        m &= m - 1;
+        HitPair h;
+        if (!eval_pair(cur, j, ray, e2h, h)) continue;
+        if (!(h.alpha > 0.0f)) continue;
+        if (!under_cap(h.alpha, count, max_depth)) {
+          capped = true;
+          break;
+        }
+        log_beta = log_beta + log1pf(-h.alpha);
       }
     }
   }
+  cp_async_wait<0>();
   float g_lb = gbeta * expf(log_beta);
-  [[maybe_unused]] BandWindow<true> win;
+  [[maybe_unused]] BandWindow<true, BAND ? kBandCap : 1> win;
+  const int bnd = band;
 
   // ---- 2. segments in reverse ---------------------------------------------
+  if (nbuf == 2 && nwalk > 0) {
+    __syncthreads();  // the carry pass's reads of the buffers are done
+    stage_async<K, true>(pft, sht, idx, stage_at<K>(smem, seg, (nwalk - 1) & 1),
+                         S, (nwalk - 1) * seg, seg_len(nwalk - 1), sh_async);
+    cp_async_commit();
+  }
   for (int si = nwalk - 1; si >= 0; --si) {
-    const int n = min(seg, n_cols - si * seg);
+    const int n = seg_len(si);
+    const int nw = (n + 31) >> 5;
     __syncthreads();  // the previous segment's shared reads are done
-    stage_stream<K>(pft, sht, idx, s_pf, s_sh, s_col, S, si * seg, n, tid,
-                    nthreads);
-    for (int i = tid; i < kAcc * n; i += nthreads) s_acc[i] = 0.0f;
+    const Stage cur = stage_at<K>(smem, seg, nbuf == 2 ? si & 1 : 0);
+    if (nbuf == 2) {
+      if (si > 0)
+        stage_async<K, true>(pft, sht, idx, stage_at<K>(smem, seg, (si - 1) & 1),
+                             S, (si - 1) * seg, seg_len(si - 1), sh_async);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      stage_async<K, true>(pft, sht, idx, cur, S, si * seg, n, sh_async);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    stage_radii(cur, n, e2h);
+    if (tid < nwords) s_colany[tid] = 0u;
     __syncthreads();
+    warp_survivors(s_cone, cur.pf, n, s_mask, lane);
 
     float lb0 = 0.0f;
     int cnt0 = max_depth + 1;
     if (ray_ok) {
-      lb0 = lbt[si * R + tid];
-      cnt0 = cntt[si * R + tid];
+      lb0 = lbt[si * R + ray_i];
+      cnt0 = cntt[si * R + ray_i];
     }
+    for (int wd = 0; wd < nw; ++wd) s_hit[wd * NT + tid] = 0u;
 
+    // ---- A. one walk: the hits under the cap, and sum_seg g_lw ----------
     double sum_glw = 0.0;
-    if constexpr (BAND) {
-      // walk A: every ray's finished weights, summed; walk B: adjoints
-      sum_glw = walk_band<K, false>(s_pf, s_sh, s_acc, n, rb, e2h, max_depth,
-                                    log_kill, band, lb0, cnt0, g_lb, 0.0,
-                                    win);
-      walk_band<K, true>(s_pf, s_sh, s_acc, n, rb, e2h, max_depth, log_kill,
-                         band, lb0, cnt0, g_lb, sum_glw, win);
-    } else {
-      // walk A: sum of g_lw over the segment (f64, see walk B)
-      if (cnt0 <= max_depth) {
-        float lb = lb0;
-        int cnt = cnt0;
-        for (int j = 0; j < n; ++j) {
-          const float4* rec =
-              reinterpret_cast<const float4*>(s_pf + j * kFeat);
-          const float4 m0 = rec[0], m1 = rec[1], m2 = rec[2];  // rows 0-11
-          Pair p;
-          pair_peak(m0, m1, m2, ray, p);
-          if (!(p.tp > 0.0f)) continue;
-          if (!pair_hit(m0, m1, m2, ray, e2h, p)) continue;
-          float dens, raw;
-          const float alpha =
-              pair_alpha(s_pf[j * kFeat + kOpacRow], p.q, dens, raw);
-          if (!(alpha > 0.0f)) continue;
-          if (!under_cap(alpha, cnt, max_depth)) break;
-          if (lb > log_kill) {
-            const float w = expf(lb) * alpha;
-            float e0, e1, e2;
-            emission<K>(rb.basis, s_sh + j * 3 * K, e0, e1, e2);
-            const float g_w = gl0 * fmaxf(e0, 0.0f) + gl1 * fmaxf(e1, 0.0f) +
-                              gl2 * fmaxf(e2, 0.0f);
-            sum_glw += static_cast<double>(g_w * w);
-          }
-          lb = lb + log1pf(-alpha);
-        }
-      }
-
-      // walk B: per-pair adjoints, reduced over the block per column
+    if (cnt0 <= max_depth) {
       float lb = lb0;
       int cnt = cnt0;
-      bool done = cnt0 > max_depth;
-      // the suffix sum of g_lw is the total less the inclusive prefix, both
-      // in f64: in f32 the difference of two long sums loses the small
-      // suffixes at a segment's end
-      double prefix = 0.0;
-      for (int j = 0; j < n; ++j) {
-        if (!__any_sync(kFull, !done)) break;  // the whole warp is capped
-        float acc[13];
-        float acc_sh[3 * K];
-#pragma unroll
-        for (int i = 0; i < 13; ++i) acc[i] = 0.0f;
-#pragma unroll
-        for (int i = 0; i < 3 * K; ++i) acc_sh[i] = 0.0f;
-        bool has = false, has_sh = false;
-        const float* col = s_pf + j * kFeat;
-        const float4* rec = reinterpret_cast<const float4*>(col);
-        const float4 m0 = rec[0], m1 = rec[1], m2 = rec[2];  // rows 0-11
-        Pair p;
-        if (!done) pair_peak(m0, m1, m2, ray, p);
-        if (!done && p.tp > 0.0f && pair_hit(m0, m1, m2, ray, e2h, p)) {
-          const float opac = col[kOpacRow];
-          float dens, raw;
-          const float alpha = pair_alpha(opac, p.q, dens, raw);
-          if (!under_cap(alpha, cnt, max_depth)) {
-            done = true;  // this pair and every later one: alpha 0
-          } else {
-            has = true;
-            const bool alive = lb > log_kill;
-            float g_w = 0.0f, exp_lw = 0.0f, w = 0.0f;
-            if (alive) {
-              exp_lw = expf(lb);
-              w = exp_lw * alpha;
-              float e0, e1, e2;
-              emission<K>(rb.basis, s_sh + j * 3 * K, e0, e1, e2);
-              g_w = gl0 * fmaxf(e0, 0.0f) + gl1 * fmaxf(e1, 0.0f) +
-                    gl2 * fmaxf(e2, 0.0f);
-              sh_adjoint_rows<K>(rb.basis_f, e0, e1, e2, gl0, gl1, gl2, w,
-                                 acc_sh);
-              has_sh = true;
+      if constexpr (!BAND) {
+        bool capped = false;
+        for (int wd = 0; wd < nw && !capped; ++wd) {
+          unsigned m = s_mask[wd], bits = 0u;
+          while (m) {
+            const int b = __ffs(m) - 1;
+            const int j = (wd << 5) + b;
+            m &= m - 1;
+            HitPair h;
+            if (!eval_pair(cur, j, ray, e2h, h)) continue;
+            if (!under_cap(h.alpha, cnt, max_depth)) {
+              capped = true;  // this pair and every later one: alpha 0
+              break;
             }
-            const float g_lw = g_w * w;
-            prefix += static_cast<double>(g_lw);
-            const float g_logt = g_lb + static_cast<float>(sum_glw - prefix);
-            const float g_alpha = (alive ? g_w * exp_lw : 0.0f) +
-                                  g_logt * (-1.0f / (1.0f - alpha));
-            pair_adjoint_rows(m0, m1, p, ray, opac, dens, raw, g_alpha, acc);
-            if (alpha > 0.0f) lb = lb + log1pf(-alpha);
+            bits |= 1u << b;
+            if (lb > log_kill) {
+              const float w = expf(lb) * h.alpha;
+              float ge0, ge1, ge2;
+              const float g_w = emission_grad<K>(rb, cur, j, w, ge0, ge1, ge2);
+              sum_glw += static_cast<double>(g_w * w);
+            }
+            if (h.alpha > 0.0f) lb = lb + log1pf(-h.alpha);
           }
+          s_hit[wd * NT + tid] = bits;
         }
-        reduce_column<K>(s_acc + j * kAcc, acc, acc_sh, has, has_sh, lane);
+      } else {
+        // stage 0 at each hit (alpha = 0 hits too: they have adjoints),
+        // stage 1 (the corrected weight) B lanes after it
+        win.reset(2 * bnd + 1);
+        auto finish = [&](int x) {
+          const BandHit& hh = win.at(x);
+          const float lw = hh.lbe + band_corr(win, x, bnd);
+          if (lw > log_kill) {
+            const float w = expf(lw) * hh.alpha;
+            float ge0, ge1, ge2;
+            const float g_w =
+                emission_grad<K>(rb, cur, hh.lane, w, ge0, ge1, ge2);
+            sum_glw += static_cast<double>(g_w * w);
+          }
+        };
+        bool capped = false;
+        for (int wd = 0; wd < nw && !capped; ++wd) {
+          unsigned m = s_mask[wd], bits = 0u;
+          while (m) {
+            const int b = __ffs(m) - 1;
+            const int j = (wd << 5) + b;
+            m &= m - 1;
+            HitPair h;
+            if (!eval_pair(cur, j, ray, e2h, h)) continue;
+            if (!under_cap(h.alpha, cnt, max_depth)) {
+              capped = true;
+              break;
+            }
+            bits |= 1u << b;
+            for (; win.i2 < win.tail && win.at(win.i2).lane + bnd < j;
+                 ++win.i2)
+              finish(win.i2);
+            win.drop((win.i2 < win.tail ? win.at(win.i2).lane : j) - bnd,
+                     win.i2);
+            const float logt = h.alpha > 0.0f ? log1pf(-h.alpha) : 0.0f;
+            win.push(BandHit{j, entry_key(h.p, e2h), logt, h.alpha, lb});
+            lb = lb + logt;
+          }
+          s_hit[wd * NT + tid] = bits;
+        }
+        for (; win.i2 < win.tail; ++win.i2) finish(win.i2);
       }
     }
-    g_lb = g_lb + static_cast<float>(sum_glw);
+    // the columns some ray of the block hits
+    __syncwarp();
+    for (int wd = 0; wd < nw; ++wd) {
+      const unsigned v = __reduce_or_sync(kFull, s_hit[wd * NT + tid]);
+      if (lane == 0 && v) atomicOr(s_colany + wd, v);
+    }
     __syncthreads();
 
-    // the segment's adjoints to their tile slots; gsh rounded to bf16 once
-    for (int i = tid; i < 13 * n; i += nthreads) {
-      const int row = i / n, j = i - row * n;
-      gpft[static_cast<size_t>(row) * S + s_col[j]] = s_acc[j * kAcc + row];
+    // ---- B. the recorded hits, chunk by chunk; the column sums ----------
+    float lb = lb0;
+    double prefix = 0.0;
+    int pos = 0;  // band: the next lane to push
+    if constexpr (BAND) win.reset(CH + 3 * bnd);
+    for (int c0 = 0; c0 < n; c0 += CH) {
+      const unsigned chunk_any =
+          (s_colany[c0 >> 5] >> (c0 & 31)) & ((1u << CH) - 1u);
+      if (chunk_any == 0u) continue;  // block-uniform
+      float* s_c = s_scal;
+      if constexpr (!BAND) {
+        unsigned m = (s_hit[(c0 >> 5) * NT + tid] >> (c0 & 31)) &
+                     ((1u << CH) - 1u);
+        while (m) {
+          const int jj = __ffs(m) - 1;
+          const int j = c0 + jj;
+          m &= m - 1;
+          HitPair h;
+          eval_pair(cur, j, ray, e2h, h);  // a hit (phase A)
+          const bool alive = lb > log_kill;
+          float g_w = 0.0f, exp_lw = 0.0f, w = 0.0f;
+          float ge0 = 0.0f, ge1 = 0.0f, ge2 = 0.0f;
+          if (alive) {
+            exp_lw = expf(lb);
+            w = exp_lw * h.alpha;
+            g_w = emission_grad<K>(rb, cur, j, w, ge0, ge1, ge2);
+          }
+          prefix += static_cast<double>(g_w * w);
+          const float g_logt = g_lb + static_cast<float>(sum_glw - prefix);
+          const float g_alpha = (alive ? g_w * exp_lw : 0.0f) +
+                                g_logt * (-1.0f / (1.0f - h.alpha));
+          hit_scalars(h.m0, h.m1, h.p, ray, h.opac, h.dens, h.raw, g_alpha, ge0,
+                      ge1, ge2, s_c + jj * kScal * NT + tid, NT);
+          if (h.alpha > 0.0f) lb = lb + log1pf(-h.alpha);
+        }
+      } else {
+        const int last = min(n - 1, c0 + CH + 2 * bnd - 1);
+        // stage 0: push the recorded hits through lane `last`
+        for (int j = next_hit(s_hit, NT, tid, pos, last); j >= 0;
+             j = next_hit(s_hit, NT, tid, pos, last)) {
+          HitPair h;
+          eval_pair(cur, j, ray, e2h, h);
+          const float logt = h.alpha > 0.0f ? log1pf(-h.alpha) : 0.0f;
+          win.push(BandHit{j, entry_key(h.p, e2h), logt, h.alpha, lb});
+          lb = lb + logt;
+          pos = j + 1;
+        }
+        pos = last + 1;
+        // stage 1: the weights whose band is complete
+        for (; win.i2 < win.tail &&
+               (win.at(win.i2).lane + bnd <= last || last == n - 1);
+             ++win.i2) {
+          const BandHit& hh = win.at(win.i2);
+          const float lw = hh.lbe + band_corr(win, win.i2, bnd);
+          float g_w = 0.0f, w = 0.0f;
+          if (lw > log_kill) {
+            w = expf(lw) * hh.alpha;
+            float ge0, ge1, ge2;
+            g_w = emission_grad<K>(rb, cur, hh.lane, w, ge0, ge1, ge2);
+          }
+          const float g_lw = g_w * w;
+          prefix += static_cast<double>(g_lw);
+          win.grad[win.slot(win.i2)] = BandGrad{
+              lw, g_w, w, g_lw, g_lb + static_cast<float>(sum_glw - prefix)};
+        }
+        // stage 2: the adjoints of the chunk's hits
+        for (; win.i3 < win.i2 && win.at(win.i3).lane < c0 + CH; ++win.i3) {
+          const BandHit& hh = win.at(win.i3);
+          const BandGrad gr = win.grad[win.slot(win.i3)];
+          const float g_logt = band_adjoint(win, win.i3, bnd);
+          const bool alive = gr.lw > log_kill;
+          HitPair h;
+          eval_pair(cur, hh.lane, ray, e2h, h);
+          float ge0 = 0.0f, ge1 = 0.0f, ge2 = 0.0f;
+          if (alive) emission_grad<K>(rb, cur, hh.lane, gr.w, ge0, ge1, ge2);
+          const float g_alpha = (alive ? gr.g_w * expf(gr.lw) : 0.0f) +
+                                g_logt * (-1.0f / (1.0f - hh.alpha));
+          hit_scalars(h.m0, h.m1, h.p, ray, h.opac, h.dens, h.raw, g_alpha,
+                      ge0, ge1, ge2, s_c + (hh.lane - c0) * kScal * NT + tid,
+                      NT);
+        }
+        win.drop(c0 + CH - bnd, win.i3);
+      }
+      __syncthreads();
+      // one warp per chunk column sums the block's rays
+      if (warp < CH) {
+        const int j = c0 + warp;
+        if (j < n && ((chunk_any >> warp) & 1u))
+          column_sum<K, NT>(s_hit, s_cm, s_c + warp * kScal * NT, s_ray,
+                            cur.pf + j * kFeat, j, cur.col[j], S, gpft, gsht,
+                            lane);
+      }
+      __syncthreads();
     }
-    for (int i = tid; i < 3 * K * n; i += nthreads) {
-      const int row = i / n, j = i - row * n;
-      gsht[static_cast<size_t>(row) * S + s_col[j]] =
-          __float2bfloat16_rn(s_acc[j * kAcc + 13 + row]);
-    }
+    g_lb = g_lb + static_cast<float>(sum_glw);
   }
+  cp_async_wait<0>();
 }
 
-template <int K, bool BAND>
+template <int K, bool BAND, int NT>
 cudaError_t launch_as(const float* d8, const float* pf,
                       const __nv_bfloat16* sh3, const int* n_seg_t,
                       const float* g_l, const float* g_beta, float* lb_scr,
@@ -514,21 +662,58 @@ cudaError_t launch_as(const float* d8, const float* pf,
                       __nv_bfloat16* gsh, int T, int R, int S, int seg,
                       float e2h, int max_depth, float log_kill, int compact,
                       int band, cudaStream_t stream) {
-  const int threads = (R + 31) / 32 * 32;
-  const size_t smem =
-      static_cast<size_t>(seg) * (kFeat + 13 + 3 * K) * sizeof(float) +
-      static_cast<size_t>(seg) * sizeof(int) + 32 * sizeof(int) +
-      static_cast<size_t>(seg) * 3 * K * sizeof(__nv_bfloat16);
+  constexpr int CH = chunk_cols<NT>();
+  const int nwords = (seg + 31) / 32;
+  const size_t rest = mask_bytes(seg, NT) + align16(size_t(nwords) * NT * 4) +
+                      align16(size_t(CH) * kScal * NT * 4) +
+                      align16(size_t(3) * NT * 4) + align16(size_t(nwords) * 4) +
+                      size_t(NT / 32) * (NT / 32) * 4;
+  int nbuf = 2;
+  size_t smem = 2 * stage_bytes<K>(seg) + rest;
+  if (smem > kMaxSmem) {
+    nbuf = 1;
+    smem = stage_bytes<K>(seg) + rest;
+  }
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const int sh_async =
+      (reinterpret_cast<uintptr_t>(sh3) & 3) == 0 && (S & 1) == 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bwd3_kernel<K, BAND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd3_kernel<K, BAND, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  bwd3_kernel<K, BAND><<<T, threads, smem, stream>>>(
+  bwd3_kernel<K, BAND, NT><<<T, NT, smem, stream>>>(
       d8, pf, sh3, n_seg_t, g_l, g_beta, lb_scr, cnt_scr, idx_scr, gpf, gsh, R,
-      S, seg, e2h, max_depth, log_kill, compact, band);
+      S, seg, e2h, max_depth, log_kill, compact, band, nbuf, sh_async);
   return cudaGetLastError();
+}
+
+template <int K, bool BAND>
+cudaError_t launch_nt(const float* d8, const float* pf,
+                      const __nv_bfloat16* sh3, const int* n_seg_t,
+                      const float* g_l, const float* g_beta, float* lb_scr,
+                      int* cnt_scr, int* idx_scr, float* gpf,
+                      __nv_bfloat16* gsh, int T, int R, int S, int seg,
+                      float e2h, int max_depth, float log_kill, int compact,
+                      int band, cudaStream_t stream) {
+  switch (block_threads(R)) {
+    case 256:
+      return launch_as<K, BAND, 256>(d8, pf, sh3, n_seg_t, g_l, g_beta,
+                                     lb_scr, cnt_scr, idx_scr, gpf, gsh, T, R,
+                                     S, seg, e2h, max_depth, log_kill, compact,
+                                     band, stream);
+    case 512:
+      return launch_as<K, BAND, 512>(d8, pf, sh3, n_seg_t, g_l, g_beta,
+                                     lb_scr, cnt_scr, idx_scr, gpf, gsh, T, R,
+                                     S, seg, e2h, max_depth, log_kill, compact,
+                                     band, stream);
+    default:
+      return launch_as<K, BAND, 1024>(d8, pf, sh3, n_seg_t, g_l, g_beta,
+                                      lb_scr, cnt_scr, idx_scr, gpf, gsh, T, R,
+                                      S, seg, e2h, max_depth, log_kill,
+                                      compact, band, stream);
+  }
 }
 
 template <int K>
@@ -538,13 +723,13 @@ cudaError_t launch(const float* d8, const float* pf, const __nv_bfloat16* sh3,
                    __nv_bfloat16* gsh, int T, int R, int S, int seg, float e2h,
                    int max_depth, float log_kill, int compact, int band,
                    cudaStream_t stream) {
-  if (band > 0)
-    return launch_as<K, true>(d8, pf, sh3, n_seg_t, g_l, g_beta, lb_scr,
-                              cnt_scr, idx_scr, gpf, gsh, T, R, S, seg, e2h,
-                              max_depth, log_kill, compact, band, stream);
-  return launch_as<K, false>(d8, pf, sh3, n_seg_t, g_l, g_beta, lb_scr,
-                             cnt_scr, idx_scr, gpf, gsh, T, R, S, seg, e2h,
-                             max_depth, log_kill, compact, band, stream);
+  if (band == 0)
+    return launch_nt<K, false>(d8, pf, sh3, n_seg_t, g_l, g_beta, lb_scr,
+                               cnt_scr, idx_scr, gpf, gsh, T, R, S, seg, e2h,
+                               max_depth, log_kill, compact, band, stream);
+  return launch_nt<K, true>(d8, pf, sh3, n_seg_t, g_l, g_beta, lb_scr, cnt_scr,
+                            idx_scr, gpf, gsh, T, R, S, seg, e2h, max_depth,
+                            log_kill, compact, band, stream);
 }
 
 }  // namespace
@@ -564,8 +749,7 @@ extern "C" int composite3_bwd(const void* d8, const void* pf, const void* sh3,
                               int R, int S, int seg, int k, float e2h,
                               int max_depth, float log_kill, int compact,
                               int band, void* stream) {
-  if (T < 0 || R < 1 || R > kMaxRays || seg < 1 || S < seg || S % seg != 0 ||
-      band < 0 || band > kMaxBand)
+  if (!args_ok(T, R, S, seg, band))
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);

@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into
 ``.gitignore`` lists), with a plain C interface, and loaded with
 ``ctypes``. The hash covers the source, every ``csrc`` header it includes
 (``#include "x.cuh"``, followed recursively) and the flags, so an edited
-source or header is rebuilt and a stale library is never loaded.
+source or header is rebuilt and a stale library is never loaded. nvcc's
+output (ptxas's registers and spills per kernel) is kept beside the library
+as ``<name>_<hash>.log``.
 :func:`build` starts one nvcc per source, all at once. A failed build
 raises with nvcc's output. Nothing here runs at import time: the CPU tests
 import every module on a machine with no nvcc.
@@ -103,10 +105,20 @@ def build(*names: str) -> None:
                 f"{' '.join(cmd)}\n{log}"
             )
             continue
+        so.with_suffix(".log").write_text(log)
         os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
         build_info[name] = {"path": str(so), "seconds": seconds, "log": log}
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current library of ``csrc/<name>.cu`` (this
+    process's build, or the one kept beside the library); "" if none."""
+    if name in build_info:
+        return build_info[name]["log"]
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -498,19 +498,29 @@ def composite_tiles3_bwd_reference(
     return gpf, gsh.to(sh3.dtype)
 
 
-# tensor pointers each C entry point takes before its scalar arguments
-_N_POINTERS = {"composite3_fwd": 9, "composite3_bwd": 11}
-# widest order band the kernels take: each ray keeps its hits of the last
-# 3 * MAX_BAND + 1 lanes of a segment (kMaxBand in composite3_common.cuh)
+# each C entry point's arguments after its tensor pointers: T, R, S, seg,
+# sh_k, e2h, max_depth, log_kill, compact, band, stream; the ablations'
+# (built for sh_k 4 and no band) T, R, S, seg, abl, e2h, max_depth,
+# log_kill, compact, stream
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "composite3_fwd": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _CF, _CI, _CI, _VP],
+    "composite3_fwd_abl": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _CF, _CI, _VP],
+    "composite3_bwd": [_VP] * 11 + [_CI] * 5 + [_CF, _CI, _CF, _CI, _CI, _VP],
+}
+# The forward's timing ablations (csrc/composite3_fwd.cuh, enum Ablation):
+# the TPU kernel's _ABL switches that its profiler sweeps, each removing one
+# piece of the kernel's work. Their results are wrong by design.
+ABLATIONS = {"nodepth": 1, "noemis": 2, "notrans": 3, "nocum": 4, "noop": 5,
+             "noop2": 6, "static": 7, "fori": 8}
+# widest order band the kernels take (kMaxBand in composite3_common.cuh:
+# the rays' windows of hits are sized for it)
 MAX_BAND = 32
 
 
 def _lib(name: str = "composite3_fwd"):
     """The ctypes library of ``csrc/<name>.cu`` (built at first use)."""
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind(
-        name, [vp] * _N_POINTERS[name] + [ci, ci, ci, ci, ci, cf, ci, cf, ci, ci, vp]
-    )
+    return _build.bind(name, _ARGTYPES[name])
 
 
 def _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k, order_band, extra=()):
@@ -551,26 +561,33 @@ def _stream_scratch(t, s, compact, dev):
 
 
 def _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k,
-            compact, order_band=0):
-    """Launch csrc/composite3_fwd.cu: (L [T, R, 3], beta [T, R], walked [T],
+            compact, order_band=0, abl=0):
+    """Launch csrc/composite3_fwd.cu, or with ``abl`` (an ABLATIONS value)
+    csrc/composite3_fwd_abl.cu: (L [T, R, 3], beta [T, R], walked [T],
     live [T])."""
     t, r, s = _check_inputs(d8, pf, sh3, n_seg_t, seg, sh_k, order_band)
     dev = d8.device
-    lib = _lib("composite3_fwd")
+    name = "composite3_fwd_abl" if abl else "composite3_fwd"
+    lib = _lib(name)
     l_out = torch.empty((t, r, 3), dtype=torch.float32, device=dev)
     beta = torch.empty((t, r), dtype=torch.float32, device=dev)
     counts = torch.empty((2, t), dtype=torch.int32, device=dev)
     idx = _stream_scratch(t, s, compact, dev)
     with torch.cuda.device(dev):
-        err = lib.composite3_fwd(
-            d8.data_ptr(), pf.data_ptr(), sh3.data_ptr(), n_seg_t.data_ptr(),
-            l_out.data_ptr(), beta.data_ptr(), counts[0].data_ptr(),
-            counts[1].data_ptr(), idx.data_ptr(), t, r, s, seg, sh_k,
-            extent2 * 0.5, int(max_depth), _log_kill(beta_kill), int(compact),
-            int(order_band), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.raise_on(lib, err, "composite3_fwd")
-    composite_tiles3.launches += 1
+        head = (d8.data_ptr(), pf.data_ptr(), sh3.data_ptr(), n_seg_t.data_ptr(),
+                l_out.data_ptr(), beta.data_ptr(), counts[0].data_ptr(),
+                counts[1].data_ptr(), idx.data_ptr(), t, r, s, seg)
+        scalars = (extent2 * 0.5, int(max_depth), _log_kill(beta_kill), int(compact))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if abl:
+            err = lib.composite3_fwd_abl(*head, abl, *scalars, stream)
+        else:
+            err = lib.composite3_fwd(*head, sh_k, *scalars, int(order_band), stream)
+    _build.raise_on(lib, err, name)
+    if abl:
+        forward3_ablated.launches += 1
+    else:
+        composite_tiles3.launches += 1
     return l_out, beta, counts[0], counts[1]
 
 
@@ -627,6 +644,26 @@ def forward3(d8, pf, sh3, n_seg_t, seg=256, extent2=9.0, max_depth=128,
     if d8.device.type != "cuda":
         raise ValueError(f"composite_tiles3 runs on CPU or CUDA, not {d8.device}")
     return _launch(d8, pf, sh3, n_seg_t, *args)
+
+
+def forward3_ablated(abl, d8, pf, sh3, n_seg_t, seg=256, extent2=9.0, max_depth=128,
+                     beta_kill=0.01, sh_k=4, compact=False):
+    """The forward kernel with the timing ablation ``abl`` (a key of
+    ABLATIONS) compiled in, for the profiler's abl_* stages: (L, beta,
+    walked, live) as :func:`forward3` returns them, wrong by design. CUDA
+    tensors only (there is no plain version of a wrong result), sh_k 4 and
+    no band; counted in ``forward3_ablated.launches``."""
+    if abl not in ABLATIONS:
+        raise ValueError(f"unknown ablation {abl!r}; the ablations are {', '.join(ABLATIONS)}")
+    if d8.device.type != "cuda":
+        raise ValueError("the ablated kernels time the CUDA kernel and run on CUDA tensors only")
+    if sh_k != 4:
+        raise ValueError(f"the ablated kernels are built for sh_k 4, got {sh_k}")
+    return _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k, compact,
+                   0, ABLATIONS[abl])
+
+
+forward3_ablated.launches = 0
 
 
 def composite_tiles3_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, seg=256,

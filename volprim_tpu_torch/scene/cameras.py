@@ -44,7 +44,11 @@ def look_at(origin, target, up) -> np.ndarray:
 @dataclasses.dataclass
 class CameraSpecs:
     """Pinhole camera; ``cx, cy`` are principal-point offsets in pixels (the
-    principal point is ``(W/2 - cx, H/2 - cy)``)."""
+    principal point is ``(W/2 - cx, H/2 - cy)``). The fields and their order
+    are the JAX package's (volprim_tpu/scene/cameras.py), so positional
+    construction means the same in both: the clip planes and the radial
+    (k1-k6) and tangential (p1, p2) distortion are carried, not applied to
+    rays, as there."""
 
     name: str
     width: int
@@ -52,8 +56,18 @@ class CameraSpecs:
     to_world: np.ndarray  # 4x4, Mitsuba convention
     fov: Optional[float] = None  # degrees, x axis
     focal_length: Optional[float] = None  # pixels
+    near_clip: float = 0.1
+    far_clip: float = 10000.0
     cx: float = 0.0
     cy: float = 0.0
+    k1: float = 0.0
+    k2: float = 0.0
+    k3: float = 0.0
+    k4: float = 0.0
+    k5: float = 0.0
+    k6: float = 0.0
+    p1: float = 0.0
+    p2: float = 0.0
 
     def __post_init__(self):
         self.to_world = np.asarray(self.to_world, np.float64).reshape(4, 4)

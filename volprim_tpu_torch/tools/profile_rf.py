@@ -17,6 +17,11 @@ the 262,144-primitive synthetic surface scene, fused backend) into:
   kernel         composite3.composite_tiles3 alone over the gathered blocks
   clone          the DMA-floor probe of the same call shape (kernels/clone)
   segstats       the compositor's walked and live segments per tile
+  abl_<name>     the kernel stage with one of the TPU kernel's timing
+                 ablations compiled into the CUDA forward
+                 (composite3.ABLATIONS: nodepth, noemis, notrans, nocum,
+                 noop, noop2, static, fori); on the card only, and their
+                 results are wrong by design
 
 Each stage runs once to warm up, then ``--reps`` times with a new seed each
 time, ``torch.cuda.synchronize()`` around each rep; the minimum is
@@ -25,9 +30,8 @@ reported. Runs on the card, or with ``--cpu`` on the CPU.
 Usage: python -m volprim_tpu_torch.tools.profile_rf [--reps 4]
        [--stages full,nokernel,...] [--cpu] [...]
 
-What is not ported exits with its ROADMAP.md item: the ``abl_*`` stages,
-which toggle branches of the TPU kernel's body (composite3._ABL),
-``--feat_major`` and ``--kernel_batch`` other than 1 (TPU layout knobs).
+What is not ported exits with its ROADMAP.md item: ``--feat_major`` and
+``--kernel_batch`` other than 1 (TPU layout knobs).
 """
 
 from __future__ import annotations
@@ -38,12 +42,16 @@ import time
 import numpy as np
 import torch
 
+from ..kernels.composite3 import ABLATIONS
+
 # the bench scene and film (tests shrink them)
 N_PRIMS = 262144
 WIDTH = 512
 
 STAGES = ("full", "in_cull_nosel", "in_cull", "in_pack", "in_gather_pf", "in_gather",
           "nokernel", "cull", "cull_coarse", "gather", "kernel", "clone", "segstats")
+# the kernel stage with a timing ablation compiled in (card only)
+ABL_STAGES = tuple(f"abl_{name}" for name in ABLATIONS)
 
 
 def _timeit(fn, seeds, reps, dev):
@@ -119,13 +127,14 @@ def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
     stages = [st for st in args.stages.split(",") if st]
     for st in stages:
-        if st.startswith("abl_"):
+        if st in ABL_STAGES and args.cpu:
             raise SystemExit(
-                f"stage {st}: the TPU kernel's _ABL toggles are not ported; they are "
-                "queued as compile-time variants of csrc/composite3_fwd.cu (ROADMAP.md §B1)"
+                f"stage {st} times a variant of the CUDA kernel "
+                "(csrc/composite3_fwd_abl.cu) and needs the card: drop --cpu"
             )
-        if st not in STAGES:
-            raise SystemExit(f"unknown stage {st!r}; the stages are {', '.join(STAGES)}")
+        if st not in STAGES + ABL_STAGES:
+            raise SystemExit(f"unknown stage {st!r}; the stages are "
+                             f"{', '.join(STAGES + ABL_STAGES)}")
     if args.feat_major:
         raise SystemExit("--feat_major is a TPU layout knob with no counterpart in the "
                          "port (ROADMAP.md §A2)")
@@ -289,7 +298,8 @@ def main(argv=None) -> dict:
         coarse_sum(0)
         report("cull_coarse", *_timeit(coarse_sum, 600, args.reps, dev))
 
-    if {"gather", "kernel", "clone", "segstats"} & set(stages):
+    abl_stages = [st for st in stages if st in ABL_STAGES]
+    if {"gather", "kernel", "clone", "segstats"} & set(stages) or abl_stages:
         # real culled shortlists for one frame, gathered once
         ci, cv, _, d_t = cull(0)
         ptab = composite3.pack_fused_features(state.prims, origin)
@@ -332,6 +342,15 @@ def main(argv=None) -> dict:
 
         kern(0)
         report("kernel", *_timeit(kern, 400, args.reps, dev))
+
+    for st in abl_stages:
+        def kern_abl(s, abl=st[len("abl_"):]):
+            l, beta, _, _ = composite3.forward3_ablated(abl, d8 + float(s) * 1e-12, pf_t, sh_t,
+                                                        n_seg_t, **kw)
+            return l.sum() + beta.sum()
+
+        kern_abl(0)
+        report(st, *_timeit(kern_abl, 450, args.reps, dev))
 
     if "clone" in stages:
         ut = torch.triu(torch.ones((cfg.segment, cfg.segment), device=dev))
