@@ -26,14 +26,15 @@
 // Then the kernels and the plain versions take the same hit decisions and
 // differ by the ulps of expf / log1pf and the order of later sums.
 //
-// One block per tile, one thread per ray (R <= 1024). Each segment's columns
-// are staged in shared memory as 12-float records (the live features and
-// the opacity) and 3K-float SH rows; every thread walks them in stream order.
-// What bounds it on this card: FP32 issue per (ray, column) pair (the
-// pair math runs for all of the tile's S columns; v1 and v2 have no
-// compaction) and, in the backward, the per-column reduction over the
-// block's rays; not device-memory bytes (a tile's columns are read once per
-// walk while every column meets R rays).
+// The forward: one block per tile, one thread per ray (R <= 1024). Each
+// segment's columns are staged in shared memory as 12-float records (the
+// live features and the opacity) and 3K-float SH rows; every thread walks
+// them in stream order. What bounds it on this card: FP32 issue per (ray,
+// column) pair (the pair math runs for all of the tile's S columns; v1 and
+// v2 have no compaction), not device-memory bytes (a tile's columns are
+// read once while every column meets R rays). The backward
+// (composite12_bwd.cuh) stages and walks the same way and takes every hit,
+// cap and beta_kill decision through the same functions.
 
 #pragma once
 
@@ -118,8 +119,6 @@ __device__ __forceinline__ void sh_basis(float dx, float dy, float dz,
 // over features 0..9. The basis is an input with all 16 columns.
 struct V1 {
   static constexpr int kK = kSH;
-  static constexpr int kGrad = 10;  // gpf rows written (10-15 are 0)
-  static constexpr int kCol = 1;    // column adjoint rows: opacity
   struct Ray {
     float fa[10], fb[10], fc[10], basis[kK];
   };
@@ -140,7 +139,9 @@ struct V1 {
     if (i < 10) return A.pf[tc * kFeat + i];
     return i == 10 ? A.col[tc] : 0.0f;
   }
-  __device__ static void coeffs(const Ray& r, const float4 m0, const float4 m1,
+  // any ray type with fa, fb, fc (the backward's carries fewer basis columns)
+  template <class R>
+  __device__ static void coeffs(const R& r, const float4 m0, const float4 m1,
                                 const float4 m2, float& a, float& b,
                                 float& c) {
     const float p[10] = {m0.x, m0.y, m0.z, m0.w, m1.x,
@@ -155,21 +156,6 @@ struct V1 {
       c = c + r.fc[i] * p[i];
     }
   }
-  // adjoint of feature row i: fa g_a + fb g_b + fc g_c (g_c = g_q)
-  __device__ static float grad_row(const Ray& r, int i, float g_a, float g_b,
-                                   float g_q) {
-    return r.fa[i] * g_a + r.fb[i] * g_b + r.fc[i] * g_q;
-  }
-  __device__ static void col_rows(float g_op, float /*g_q*/, float* v) {
-    v[0] = g_op;
-  }
-  __device__ static void write_col(const Args& A, int t, int col,
-                                   const float* acc) {
-    A.gcol[static_cast<size_t>(t) * A.S + col] = acc[0];
-  }
-  __device__ static void zero_col(const Args& A, int t, int col) {
-    A.gcol[static_cast<size_t>(t) * A.S + col] = 0.0f;
-  }
 };
 
 // v2: column record [M6, U, c0, opac, 0]; a = F6(d) . M6 (0..5),
@@ -177,8 +163,6 @@ struct V1 {
 template <int K>
 struct V2 {
   static constexpr int kK = K;
-  static constexpr int kGrad = 9;  // gpf rows written: M6, U (9-15 are 0)
-  static constexpr int kCol = 2;   // column adjoint rows: opacity, c0
   struct Ray {
     float d[3], f6[6], basis[K];
   };
@@ -218,26 +202,6 @@ struct V2 {
     b = b + r.d[1] * m1.w;
     b = b + r.d[2] * m2.x;
     c = m2.y;
-  }
-  __device__ static float grad_row(const Ray& r, int i, float g_a, float g_b,
-                                   float /*g_q*/) {
-    return i < 6 ? r.f6[i] * g_a : r.d[i >= 6 ? i - 6 : 0] * g_b;
-  }
-  // opacity, then c0, whose adjoint is g_q (c = c0)
-  __device__ static void col_rows(float g_op, float g_q, float* v) {
-    v[0] = g_op;
-    v[1] = g_q;
-  }
-  __device__ static void write_col(const Args& A, int t, int col,
-                                   const float* acc) {
-    float* g = A.gcol + static_cast<size_t>(t) * 2 * A.S;
-    g[col] = acc[0];
-    g[A.S + col] = acc[1];
-  }
-  __device__ static void zero_col(const Args& A, int t, int col) {
-    float* g = A.gcol + static_cast<size_t>(t) * 2 * A.S;
-    g[col] = 0.0f;
-    g[A.S + col] = 0.0f;
   }
 };
 
@@ -282,12 +246,6 @@ __device__ __forceinline__ unsigned live_columns(const float* basis) {
   for (int k = 0; k < K; ++k)
     if (__any_sync(kFull, basis[k] != 0.0f)) live |= 1u << k;
   return live;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
 }
 
 // Copies segment columns [col0, col0 + seg) of tile t into shared memory:
@@ -369,245 +327,6 @@ __global__ void __launch_bounds__(kMaxRays) fwd_kernel(const Args A) {
   }
 }
 
-// The backward (composite_vjp.py:48 / composite2.py:159), per tile and ray:
-//   1. the forward walk without emission, storing each ray's (log beta, hit
-//      count) at each segment start in lb_scr / cnt_scr; g_lb = g_beta beta;
-//   2. segments in reverse, each walked twice from its stored carry:
-//      walk A sums g_lw = g_w w over the segment (g_w = g_L . max(e, 0));
-//      walk B takes, at each hit under the cap (alpha = 0 hits included,
-//      as the TPU kernel's depth_ok & hit mask does),
-//        g_logt  = g_lb_next + (sum_seg g_lw - prefix_incl g_lw)   (f64 sums)
-//        g_alpha = [alive] g_w exp(lw) - g_logt / (1 - alpha)
-//        g_raw = [raw < 0.9999] g_alpha, g_opac = g_raw dens,
-//        g_q = [q_raw > 0] g_raw opac dens (-1/2),
-//        g_a = g_q b^2 / a^2, g_b = g_q (-2 b / a), g_c = g_q,
-//        g_sh[ch][k] = basis[k] [e_ch > 0] g_L[ch] w;
-//      then g_lb_prev = g_lb_next + sum_seg g_lw;
-//   3. per column the block's rays are summed: a warp skips a column none of
-//      its rays contributes to (__any_sync), else reduces each adjoint row
-//      with shuffles and one lane adds it into a [seg][rows] shared
-//      accumulator with shared atomics (so the last f32 bits vary from run
-//      to run); the accumulator is written out at the segment's end.
-template <class P>
-__global__ void __launch_bounds__(kMaxRays) bwd_kernel(const Args A) {
-  constexpr int K = P::kK;
-  constexpr int kAcc = P::kGrad + P::kCol + 3 * K;
-  extern __shared__ __align__(16) float smem[];
-  float* s_rec = smem;
-  float* s_sh = s_rec + A.seg * kRec;
-  float* s_acc = s_sh + A.seg * 3 * K;
-  const int t = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
-  const int n = blockDim.x;
-  const bool ray_ok = tid < A.R;
-  const int n_seg = A.S / A.seg;
-  typename P::Ray ray;
-  P::load_ray(A, t, tid, ray_ok, ray);
-  const unsigned live = live_columns<K>(ray.basis);
-  float gl0 = 0.0f, gl1 = 0.0f, gl2 = 0.0f, gbeta = 0.0f;
-  if (ray_ok) {
-    const size_t o = static_cast<size_t>(t) * A.R + tid;
-    gl0 = A.g_l[3 * o + 0];
-    gl1 = A.g_l[3 * o + 1];
-    gl2 = A.g_l[3 * o + 2];
-    gbeta = A.g_beta[o];
-  }
-  float* lbt = A.lb_scr + static_cast<size_t>(t) * n_seg * A.R;
-  int* cntt = A.cnt_scr + static_cast<size_t>(t) * n_seg * A.R;
-
-  // ---- 1. forward pass: per-segment carries -----------------------------
-  float log_beta = 0.0f;
-  int count = 0;
-  int nwalk = n_seg;  // segments some ray of the tile enters under its cap
-  for (int si = 0; si < n_seg; ++si) {
-    const bool active = ray_ok && count <= A.max_depth;
-    if (!__syncthreads_or(active)) {
-      nwalk = si;
-      break;
-    }
-    if (ray_ok) {
-      lbt[si * A.R + tid] = log_beta;
-      cntt[si * A.R + tid] = count;
-    }
-    stage<P>(A, t, si * A.seg, s_rec, nullptr);
-    __syncthreads();
-    if (!active) continue;
-    for (int c = 0; c < A.seg; ++c) {
-      float4 m0, m1, m2;
-      load_record(s_rec, c, m0, m1, m2);
-      float a, b, cc;
-      P::coeffs(ray, m0, m1, m2, a, b, cc);
-      Hit h;
-      if (!pair_hit(a, b, cc, m2.z, A.e2, h)) continue;
-      if (!(h.alpha > 0.0f)) continue;
-      if (++count > A.max_depth) break;
-      log_beta = log_beta + log1pf(-h.alpha);
-    }
-  }
-  float g_lb = gbeta * expf(log_beta);
-
-  // ---- 2. segments in reverse ---------------------------------------------
-  for (int si = n_seg - 1; si >= 0; --si) {
-    const int col0 = si * A.seg;
-    __syncthreads();  // the previous segment's shared reads are done
-    if (si >= nwalk) {
-      // no ray of the tile enters this segment under its cap: zero adjoints
-      for (int e = tid; e < A.seg * kFeat; e += n) {
-        const int c = e / kFeat;
-        A.gpf[(static_cast<size_t>(t) * A.S + col0 + c) * kFeat + e - c * kFeat] = 0.0f;
-      }
-      for (int e = tid; e < A.seg * 3 * kSH; e += n) {
-        const int c = e / (3 * kSH);
-        A.gsh[(static_cast<size_t>(t) * A.S + col0 + c) * 3 * kSH + e - c * 3 * kSH] = 0.0f;
-      }
-      for (int c = tid; c < A.seg; c += n) P::zero_col(A, t, col0 + c);
-      continue;
-    }
-    stage<P>(A, t, col0, s_rec, s_sh);
-    for (int e = tid; e < A.seg * kAcc; e += n) s_acc[e] = 0.0f;
-    __syncthreads();
-
-    float lb0 = 0.0f;
-    int cnt0 = A.max_depth + 1;
-    if (ray_ok) {
-      lb0 = lbt[si * A.R + tid];
-      cnt0 = cntt[si * A.R + tid];
-    }
-
-    // walk A: sum of g_lw over the segment (f64, see walk B)
-    double sum_glw = 0.0;
-    if (cnt0 <= A.max_depth) {
-      float lb = lb0;
-      int cnt = cnt0;
-      for (int c = 0; c < A.seg; ++c) {
-        float4 m0, m1, m2;
-        load_record(s_rec, c, m0, m1, m2);
-        float a, b, cc;
-        P::coeffs(ray, m0, m1, m2, a, b, cc);
-        Hit h;
-        if (!pair_hit(a, b, cc, m2.z, A.e2, h)) continue;
-        if (!(h.alpha > 0.0f)) continue;
-        if (++cnt > A.max_depth) break;
-        if (lb > A.log_kill) {
-          const float w = expf(lb) * h.alpha;
-          const float* shc = s_sh + c * 3 * K;
-          const float g_w =
-              gl0 * fmaxf(emission<K>(ray.basis, shc, live), 0.0f) +
-              gl1 * fmaxf(emission<K>(ray.basis, shc + K, live), 0.0f) +
-              gl2 * fmaxf(emission<K>(ray.basis, shc + 2 * K, live), 0.0f);
-          sum_glw += static_cast<double>(g_w * w);
-        }
-        lb = lb + log1pf(-h.alpha);
-      }
-    }
-
-    // walk B: per-pair adjoints, reduced over the block per column
-    {
-      float lb = lb0;
-      int cnt = cnt0;
-      bool done = cnt0 > A.max_depth;
-      // the suffix sum of g_lw is the total less the inclusive prefix, both
-      // in f64: in f32 the difference of two long sums loses the small
-      // suffixes at a segment's end
-      double prefix = 0.0;
-      for (int c = 0; c < A.seg; ++c) {
-        if (!__any_sync(kFull, !done)) break;  // the whole warp is capped
-        bool has = false, has_sh = false;
-        float g_a = 0.0f, g_b = 0.0f, g_q = 0.0f, g_op = 0.0f;
-        float ge0 = 0.0f, ge1 = 0.0f, ge2 = 0.0f;
-        const float* shc = s_sh + c * 3 * K;
-        if (!done) {
-          float4 m0, m1, m2;
-          load_record(s_rec, c, m0, m1, m2);
-          float a, b, cc;
-          P::coeffs(ray, m0, m1, m2, a, b, cc);
-          Hit h;
-          if (pair_hit(a, b, cc, m2.z, A.e2, h)) {
-            if (h.alpha > 0.0f) ++cnt;
-            if (cnt > A.max_depth) {
-              done = true;  // this pair and every later one: alpha 0
-            } else {
-              has = true;
-              const bool alive = lb > A.log_kill;
-              float g_w = 0.0f, exp_lw = 0.0f, w = 0.0f;
-              if (alive) {
-                exp_lw = expf(lb);
-                w = exp_lw * h.alpha;
-                const float e0 = emission<K>(ray.basis, shc, live);
-                const float e1 = emission<K>(ray.basis, shc + K, live);
-                const float e2 = emission<K>(ray.basis, shc + 2 * K, live);
-                g_w = gl0 * fmaxf(e0, 0.0f) + gl1 * fmaxf(e1, 0.0f) +
-                      gl2 * fmaxf(e2, 0.0f);
-                ge0 = e0 > 0.0f ? gl0 * w : 0.0f;
-                ge1 = e1 > 0.0f ? gl1 * w : 0.0f;
-                ge2 = e2 > 0.0f ? gl2 * w : 0.0f;
-                has_sh = true;
-              }
-              const float g_lw = g_w * w;
-              prefix += static_cast<double>(g_lw);
-              const float g_logt = g_lb + static_cast<float>(sum_glw - prefix);
-              const float g_alpha = (alive ? g_w * exp_lw : 0.0f) +
-                                    g_logt * (-1.0f / (1.0f - h.alpha));
-              const float g_raw = h.raw < 0.9999f ? g_alpha : 0.0f;
-              g_op = g_raw * h.dens;
-              g_q = h.q_raw > 0.0f ? g_raw * m2.z * h.dens * (-0.5f) : 0.0f;
-              g_a = g_q * (b * b) / (a * a);
-              g_b = g_q * (-2.0f * b / a);
-              if (h.alpha > 0.0f) lb = lb + log1pf(-h.alpha);
-            }
-          }
-        }
-        float* dst = s_acc + c * kAcc;
-        if (__any_sync(kFull, has)) {
-#pragma unroll
-          for (int i = 0; i < P::kGrad; ++i) {
-            const float v = warp_sum(P::grad_row(ray, i, g_a, g_b, g_q));
-            if (lane == 0) atomicAdd(dst + i, v);
-          }
-          float cv[P::kCol];
-          P::col_rows(g_op, g_q, cv);
-#pragma unroll
-          for (int i = 0; i < P::kCol; ++i) {
-            const float v = warp_sum(cv[i]);
-            if (lane == 0) atomicAdd(dst + P::kGrad + i, v);
-          }
-        }
-        if (__any_sync(kFull, has_sh)) {
-          float* dsh = dst + P::kGrad + P::kCol;
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            if (!(live >> k & 1u)) continue;  // exactly 0 for the whole warp
-            const float v0 = warp_sum(ray.basis[k] * ge0);
-            const float v1 = warp_sum(ray.basis[k] * ge1);
-            const float v2 = warp_sum(ray.basis[k] * ge2);
-            if (lane == 0) {
-              atomicAdd(dsh + k, v0);
-              atomicAdd(dsh + K + k, v1);
-              atomicAdd(dsh + 2 * K + k, v2);
-            }
-          }
-        }
-      }
-    }
-    g_lb = g_lb + static_cast<float>(sum_glw);
-    __syncthreads();
-
-    // write the segment's adjoints; gpf rows past kGrad and SH past K are 0
-    for (int e = tid; e < A.seg * kFeat; e += n) {
-      const int c = e / kFeat, i = e - c * kFeat;
-      A.gpf[(static_cast<size_t>(t) * A.S + col0 + c) * kFeat + i] =
-          i < P::kGrad ? s_acc[c * kAcc + i] : 0.0f;
-    }
-    for (int e = tid; e < A.seg * 3 * kSH; e += n) {
-      const int c = e / (3 * kSH), j = e - c * 3 * kSH, ch = j / kSH,
-                k = j - ch * kSH;
-      A.gsh[(static_cast<size_t>(t) * A.S + col0 + c) * 3 * kSH + j] =
-          k < K ? s_acc[c * kAcc + P::kGrad + P::kCol + ch * K + k] : 0.0f;
-    }
-    for (int c = tid; c < A.seg; c += n)
-      P::write_col(A, t, col0 + c, s_acc + c * kAcc + P::kGrad);
-  }
-}
-
 inline bool bad_sizes(int T, const Args& A) {
   return T < 0 || A.R < 1 || A.R > kMaxRays || A.seg < 1 || A.S < A.seg ||
          A.S % A.seg != 0;
@@ -627,24 +346,6 @@ cudaError_t launch_fwd(const Args& A, int T, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   fwd_kernel<P><<<T, threads, smem, stream>>>(A);
-  return cudaGetLastError();
-}
-
-template <class P>
-cudaError_t launch_bwd(const Args& A, int T, cudaStream_t stream) {
-  if (bad_sizes(T, A)) return cudaErrorInvalidValue;
-  if (T == 0) return cudaSuccess;
-  const int threads = (A.R + 31) / 32 * 32;
-  constexpr int kAcc = P::kGrad + P::kCol + 3 * P::kK;
-  const size_t smem =
-      static_cast<size_t>(A.seg) * (kRec + 3 * P::kK + kAcc) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  bwd_kernel<P><<<T, threads, smem, stream>>>(A);
   return cudaGetLastError();
 }
 

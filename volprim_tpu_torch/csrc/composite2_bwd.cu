@@ -5,14 +5,14 @@
 // (_bwd_kernel, called from _bwd_rule :339). The plain PyTorch version of
 // the same function is composite_tiles2_bwd_reference in
 // volprim_tpu_torch/kernels/composite2.py; composite_tiles2_bwd there
-// launches this kernel for CUDA tensors. The two-sweep scheme, the column
-// reduction and what bounds it are described in composite12_common.cuh
-// (bwd_kernel, policy V2<K>): gpf rows 0-5 sum F6(d) g_a and rows 6-8
-// d g_b over the tile's rays (rows 9-15 are written 0), gaux row 0 sums
-// g_raw exp(-q/2) and row 1 g_q (c = c0), gsh sums basis[k] [e > 0] g_L w;
-// d8 gets no gradient.
+// launches this kernel for CUDA tensors. The carry pass and one walk per
+// segment, the column sums in a fixed order and what bounds it are
+// described in composite12_bwd.cuh (bwd12_kernel, V = 2): gpf rows 0-5
+// sum F6(d) g_a and rows 6-8 d g_b over the tile's rays (rows 9-15 are
+// written 0), gaux row 0 sums g_raw exp(-q/2) and row 1 g_q (c = c0), gsh
+// sums basis[k] [e > 0] g_L w; d8 gets no gradient.
 
-#include "composite12_common.cuh"
+#include "composite12_bwd.cuh"
 
 using namespace composite12;
 
@@ -48,16 +48,8 @@ extern "C" int composite2_bwd(const void* d8, const void* pf, const void* aux,
   A.e2 = e2;
   A.max_depth = max_depth;
   A.log_kill = log_kill;
-  const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (k) {
-    case 1: e = launch_bwd<V2<1>>(A, T, st); break;
-    case 4: e = launch_bwd<V2<4>>(A, T, st); break;
-    case 9: e = launch_bwd<V2<9>>(A, T, st); break;
-    case 16: e = launch_bwd<V2<16>>(A, T, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(
+      launch_bwd<2>(A, T, k, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* composite2_bwd_error_string(int code) {

@@ -6,13 +6,14 @@
 // _bwd_rule :238). The plain PyTorch version of the same function is
 // composite_tiles_bwd_reference in volprim_tpu_torch/kernels/composite_vjp.py;
 // composite_tiles_bwd there launches this kernel for CUDA tensors. The
-// two-sweep scheme, the column reduction and what bounds it are described in
-// composite12_common.cuh (bwd_kernel, policy V1): gpf[c, f] sums
-// fa[f] g_a + fb[f] g_b + fc[f] g_c over the tile's rays for f < 10
-// (columns 10-15 are written 0), gopac sums g_raw exp(-q/2), gsh sums
-// basis[k] [e > 0] g_L w, all f32.
+// carry pass and one walk per segment, the column sums in a fixed order and
+// what bounds it are described in composite12_bwd.cuh (bwd12_kernel, V = 1):
+// gpf[c, f] sums fa[f] g_a + fb[f] g_b + fc[f] g_c over the tile's rays for
+// f < 10 (columns 10-15 are written 0), gopac sums g_raw exp(-q/2), gsh
+// sums basis[k] [e > 0] g_L w over the k live basis columns (the rest are
+// written 0), all f32.
 
-#include "composite12_common.cuh"
+#include "composite12_bwd.cuh"
 
 using namespace composite12;
 
@@ -20,15 +21,16 @@ using namespace composite12;
 // fc, basis [T, R, 16], pf [T, S, 16], opac [T, 1, S], sh3 [T, S, 48]),
 // g_l [T, R, 3], g_beta [T, R], scratch lb_scr [T, S / seg, R] f32 and
 // cnt_scr [T, S / seg, R] int32, outputs gpf [T, S, 16], gopac [T, 1, S],
-// gsh [T, S, 48], all f32 but cnt_scr, contiguous on one device. Every
-// output element is written. Launches on `stream` and returns the launch's
+// gsh [T, S, 48], all f32 but cnt_scr, contiguous on one device; k (1, 4,
+// 9 or 16) covers every basis column that is nonzero somewhere (the later
+// ones must be 0). Every output element is written. Launches on `stream` and returns the launch's
 // cudaError_t (0 on success); it does not synchronise.
 extern "C" int composite_bwd(const void* fa, const void* fb, const void* fc,
                              const void* basis, const void* pf,
                              const void* opac, const void* sh3,
                              const void* g_l, const void* g_beta, void* lb_scr,
                              void* cnt_scr, void* gpf, void* gopac, void* gsh,
-                             int T, int R, int S, int seg, float e2,
+                             int T, int R, int S, int seg, int k, float e2,
                              int max_depth, float log_kill, void* stream) {
   Args A{};
   A.ray0 = static_cast<const float*>(fa);
@@ -52,7 +54,7 @@ extern "C" int composite_bwd(const void* fa, const void* fb, const void* fc,
   A.max_depth = max_depth;
   A.log_kill = log_kill;
   return static_cast<int>(
-      launch_bwd<V1>(A, T, static_cast<cudaStream_t>(stream)));
+      launch_bwd<1>(A, T, k, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* composite_bwd_error_string(int code) {

@@ -206,13 +206,18 @@ def composite_tiles_reference(fa, fb, fc, basis, pf, opac, sh3, seg=256,
     )
 
 
-def load_lib(name: str, n_pointers: int, n_ints: int = 4):
-    """The ctypes library of ``csrc/<name>.cu`` (built at first use). Its
-    entry point takes ``n_pointers`` tensor pointers, then T, R, S, seg
-    (and the SH count where ``n_ints`` is 5), extent^2, max_depth,
-    log(beta_kill) and the stream."""
+def argtypes(n_pointers: int, n_ints: int = 4) -> list:
+    """The ctypes argument types of a v1 / v2 entry point: ``n_pointers``
+    tensor pointers, then T, R, S, seg (and the SH count where ``n_ints``
+    is 5), extent^2, max_depth, log(beta_kill) and the stream."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _build.bind(name, [vp] * n_pointers + [ci] * n_ints + [cf, ci, cf, vp])
+    return [vp] * n_pointers + [ci] * n_ints + [cf, ci, cf, vp]
+
+
+def load_lib(name: str, n_pointers: int, n_ints: int = 4):
+    """The ctypes library of ``csrc/<name>.cu`` (built at first use), its
+    entry point bound with :func:`argtypes`."""
+    return _build.bind(name, argtypes(n_pointers, n_ints))
 
 
 def check_tensors(named, dev):

@@ -161,6 +161,10 @@ def composite_tiles2_bwd_reference(d8, pf_cam, aux, sh3, g_l, g_beta, seg=256,
     return gpf, gaux, gsh
 
 
+# composite2_bwd's C signature: 11 tensor pointers; T, R, S, seg, k
+_BWD_ARGTYPES = v1.argtypes(11, 5)
+
+
 def _inputs(d8, pf_cam, aux, sh3, seg, sh_k):
     """Checks of the v2 kernels' inputs; returns (T, R, S)."""
     t, r, _ = d8.shape
@@ -202,7 +206,7 @@ def _launch_bwd(d8, pf_cam, aux, sh3, g_l, g_beta, seg, extent2, max_depth,
     f32 = torch.float32
     dev = d8.device
     v1.check_tensors([("g_l", g_l, f32, (t, r, 3)), ("g_beta", g_beta, f32, (t, r))], dev)
-    lib = v1.load_lib("composite2_bwd", 11, 5)
+    lib = _build.bind("composite2_bwd", _BWD_ARGTYPES)
     gpf = torch.empty((t, s, _FEAT), dtype=f32, device=dev)
     gaux = torch.empty((t, 2, s), dtype=f32, device=dev)
     gsh = torch.empty((t, s, 3 * _SH), dtype=f32, device=dev)

@@ -6,7 +6,8 @@
   recomputes each segment and accumulates the adjoints), not autograd;
 - :func:`composite_tiles_bwd` launches ``csrc/composite_bwd.cu`` for CUDA
   tensors (counted in ``composite_tiles_bwd.launches``) and takes the plain
-  version for CPU tensors;
+  version for CPU tensors; the kernel carries only the basis columns up to
+  the last that is nonzero somewhere (:func:`live_sh_k`);
 - :func:`composite_tiles_ad` is the differentiable compositor: gradients
   reach pf, opac and sh3. The ray features and the basis get none (JAX
   returns zeros for them: camera rays are not trained).
@@ -69,6 +70,20 @@ def composite_tiles_bwd_reference(fa, fb, fc, basis, pf, opac, sh3, g_l, g_beta,
     return gpf, gopac, gsh
 
 
+# composite_bwd's C signature: 14 tensor pointers; T, R, S, seg, k
+_BWD_ARGTYPES = fwd.argtypes(14, 5)
+
+
+def live_sh_k(basis) -> int:
+    """The SH count the v1 backward kernel is instantiated for: the least
+    of 1, 4, 9, 16 that covers every column of ``basis`` [T, R, 16] that is
+    nonzero somewhere (rf_tiled pads the basis with zero columns past its
+    k). One device-to-host read."""
+    nz = (basis != 0).reshape(-1, basis.shape[-1]).any(dim=0)
+    last = int((nz * torch.arange(1, nz.numel() + 1, device=basis.device)).max())
+    return next(k for k in (1, 4, 9, 16) if k >= last)
+
+
 def _launch_bwd(fa, fb, fc, basis, pf, opac, sh3, g_l, g_beta, seg, extent2,
                 max_depth, beta_kill):
     """Launch csrc/composite_bwd.cu: (gpf, gopac, gsh), all f32."""
@@ -76,7 +91,7 @@ def _launch_bwd(fa, fb, fc, basis, pf, opac, sh3, g_l, g_beta, seg, extent2,
     f32 = torch.float32
     dev = fa.device
     fwd.check_tensors([("g_l", g_l, f32, (t, r, 3)), ("g_beta", g_beta, f32, (t, r))], dev)
-    lib = fwd.load_lib("composite_bwd", 14)
+    lib = _build.bind("composite_bwd", _BWD_ARGTYPES)
     gpf = torch.empty((t, s, _FEAT), dtype=f32, device=dev)
     gopac = torch.empty((t, 1, s), dtype=f32, device=dev)
     gsh = torch.empty((t, s, 3 * _SH), dtype=f32, device=dev)
@@ -89,8 +104,8 @@ def _launch_bwd(fa, fb, fc, basis, pf, opac, sh3, g_l, g_beta, seg, extent2,
             pf.data_ptr(), opac.data_ptr(), sh3.data_ptr(), g_l.data_ptr(),
             g_beta.data_ptr(), lb_scr.data_ptr(), cnt_scr.data_ptr(),
             gpf.data_ptr(), gopac.data_ptr(), gsh.data_ptr(),
-            t, r, s, seg, float(extent2), int(max_depth), fwd._log_kill(beta_kill),
-            fwd.stream_of(dev),
+            t, r, s, seg, live_sh_k(basis), float(extent2), int(max_depth),
+            fwd._log_kill(beta_kill), fwd.stream_of(dev),
         )
     _build.raise_on(lib, err, "composite_bwd")
     composite_tiles_bwd.launches += 1
