@@ -15,9 +15,10 @@ print one line:
    composite_fwd/_bwd, composite2_fwd/_bwd, clone) from this checkout, one
    process each, started together, and prints ptxas's registers, stack and
    spill bytes for every instantiation of the v3 compositors (k, band,
-   threads) and of the v1 / v2 backward (version, k, threads); it fails if
-   a k = 4 instantiation of the path (v3 unbanded, the v1 / v2 backward)
-   at 256 or 512 threads spills (spill_gated);
+   threads) and of the v1 / v2 forward and backward (version, k, threads);
+   it fails if a k = 4 instantiation of the path (v3 unbanded, the v1 / v2
+   forward and backward; v1's forward has one build per block size, which
+   takes every k) at 256 or 512 threads spills (spill_gated);
 3. kernel: the forward kernel against its plain PyTorch version at the
    headline shapes (T=64 tiles, R=512 rays, S=2048 and 8192 columns, seg
    256, k=4, bf16 SH, compaction on and off), with CUDA-event timings;
@@ -68,7 +69,13 @@ composite2_fwd.cu, composite2_bwd.cu):
     memory, PSNR of a 1-spp unjittered frame against the exact-order
     integrator on phase 5's subsample and against phase 5's fused frame),
     then every forward launch's recorded inputs replayed through the
-    wrapper against the plain version (ATOL / RTOL and KILL_FLIP);
+    wrapper against the plain version (ATOL / RTOL and KILL_FLIP), then
+    the forward on synthetic tiles (synthetic12: S = 2048, seg 256, a
+    third of the columns at opacity 0 among the others and a neutral tail)
+    at max_depth 128 and 8, held the same way: every block size (R = 256,
+    512, 1024 rays) at k = 4, R = 256 at k = 1, 9 and 16, and for v1 a set
+    whose blocks find different live SH counts (fwd12_cases); the phase
+    line carries the forward's ptxas rows and its synthetic errors;
 13. v1_train_step: the full-width train step (1 spp, L1 against a zero
     image; finite nonzero gradients of all five parameters, step time,
     peak memory), then its forward and backward launches' inputs replayed
@@ -703,16 +710,15 @@ def ptxas_table(log: str) -> list:
     """Registers, stack and spill bytes per compiled kernel from nvcc's
     ``-Xptxas -v`` log, with the template arguments of the compositors'
     instantiations (fwd3_kernel: k, banded, threads, ablation; bwd3_kernel:
-    k, banded, threads; banded is 0 or 1; bwd12_kernel, the v1 / v2
-    backward: version, k, threads)."""
+    k, banded, threads; banded is 0 or 1; fwd12_kernel and bwd12_kernel,
+    the v1 / v2 forward and backward: version, k, threads)."""
     rows, cur = [], None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
         if m:
             cur = m.group(1)
             if not rows or rows[-1]["function"] != cur:
-                inst = re.search(r"(fwd3_kernel|bwd3_kernel|bwd12_kernel)I((?:L[ib](?:n?\d+)E)+)E",
-                                 cur)
+                inst = re.search(r"((?:fwd|bwd)(?:3|12)_kernel)I((?:L[ib](?:n?\d+)E)+)E", cur)
                 rows.append(dict(function=cur, kernel=inst.group(1) if inst else None,
                                  args=[int(x.replace("n", "-")) for x in
                                        re.findall(r"L[ib](n?\d+)E", inst.group(2))] if inst else None))
@@ -731,12 +737,15 @@ def ptxas_table(log: str) -> list:
 def spill_gated(source, row) -> bool:
     """Whether a ptxas_table row of ``csrc/<source>.cu`` is one that must
     not spill: the path's k = 4 compositor instantiations at 256 and 512
-    threads (v3 unbanded, forward and backward; the v1 / v2 backwards)."""
+    threads (v3 unbanded, forward and backward; the v1 / v2 backwards; the
+    v2 forward and v1's, whose one build per block size takes every k)."""
     args = row["args"]  # threads third in every compositor's arguments
     if not args or args[2] not in (256, 512):
         return False
     if row["kernel"] in ("fwd3_kernel", "bwd3_kernel"):
         return source in ("composite3_fwd", "composite3_bwd") and args[:2] == [4, 0]
+    if row["kernel"] == "fwd12_kernel":
+        return args[0] == 1 or args[1] == 4
     return row["kernel"] == "bwd12_kernel" and args[1] == 4
 
 
@@ -877,16 +886,19 @@ def work12(api, tensors, kw) -> dict:
     """What one v1 / v2 compositor call on these inputs must do, and the
     least time of its forward and backward on this card. Pairs: every
     (ray, column) pair up to the ray's cap (the pair that takes its count
-    past max_depth included); hits: pairs that hit under the cap, counted
-    apart by alpha > 0 (``hits_alpha``) and alpha = 0 (``hits_zero``: a
-    column of opacity 0), which the forward drops at the pair test and the
-    backward charges only the emission's g_w and the opacity row
+    past max_depth included); ``pairs_fwd`` only those on columns of
+    opacity > 0, the forward's: a column of opacity <= 0 gives alpha <= 0
+    at every hit and takes no pair math in the forward. Hits: pairs that
+    hit under the cap, counted apart by alpha > 0 (``hits_alpha``) and
+    alpha = 0 (``hits_zero``: a column of opacity 0), which the backward
+    charges only the emission's g_w and the opacity row
     (:func:`ops_hit12_zero_bwd`). Bytes: the ray inputs, the columns of the
     segments that some ray of the tile enters under its cap, and the
     outputs, each once; of the inputs only the entries the kernels read:
     v1's 10 live features of fa, fb, fc and pf and its live basis columns,
     v2's direction and 9 live features, and 3 k SH floats of a column
-    (k = api.sh_k)."""
+    (k = api.sh_k); the forward reads only the opacity of a column of
+    opacity <= 0 (``live_columns_opaque`` counts the others)."""
     from volprim_tpu_torch.kernels import composite
 
     coeffs_of, opac_of = api.walk_fns(tensors, kw)
@@ -894,31 +906,40 @@ def work12(api, tensors, kw) -> dict:
     s = tensors[-1].shape[1]
     seg, md = kw["seg"], kw["max_depth"]
     count = torch.zeros((t, r, 1), device=tensors[0].device)
-    pairs = hits_alpha = hits_zero = live_cols = 0
+    pairs = pairs_fwd = hits_alpha = hits_zero = live_cols = live_opaque = 0
     for si in range(s // seg):
-        live_cols += int((count <= md).any(dim=1).sum()) * seg
+        entered = (count <= md).any(dim=1)  # [T, 1]
+        live_cols += int(entered.sum()) * seg
         a, b, c = coeffs_of(si)
-        _, hit, _, _, alpha0 = composite.pair_terms(a, b, c, opac_of(si), kw["extent2"])
+        opac = opac_of(si)
+        opaque = opac > 0.0  # [T, 1, C]
+        live_opaque += int((entered[:, :, None] & opaque).sum())
+        _, hit, _, _, alpha0 = composite.pair_terms(a, b, c, opac, kw["extent2"])
         pos = (alpha0 > 0.0).to(count.dtype)
         cum = count + torch.cumsum(pos, dim=-1)
-        pairs += int((cum - pos <= md).sum())
+        walked = cum - pos <= md
+        pairs += int(walked.sum())
+        pairs_fwd += int((walked & opaque).sum())
         under = hit & (cum <= md)
         hits_alpha += int((under & (alpha0 > 0.0)).sum())
         hits_zero += int((under & ~(alpha0 > 0.0)).sum())
         count = cum[..., -1:]
-        del a, b, c, hit, alpha0, pos, cum, under
+        del a, b, c, hit, alpha0, pos, cum, under, walked
     k = api.sh_k(tensors, kw)
     v1 = api.backend == "pallas"
     ray_bytes = t * r * ((3 * 10 + k) if v1 else 3) * 4
     col_bytes = ((10 + 1) if v1 else (9 + 2)) * 4 + 3 * k * 4  # features, opac (c0), SH
     out_cols = 16 + (1 if v1 else 2) + 48
-    fwd_bytes = ray_bytes + live_cols * col_bytes + t * r * 4 * 4
-    bwd_bytes = fwd_bytes + t * r * 4 * 4 + t * s * out_cols * 4
+    out_bytes = t * r * 4 * 4
+    fwd_bytes = ray_bytes + live_cols * 4 + live_opaque * (col_bytes - 4) + out_bytes
+    bwd_bytes = (ray_bytes + live_cols * col_bytes + out_bytes + t * r * 4 * 4
+                 + t * s * out_cols * 4)
     ops_pair = OPS_PAIR12[api.backend]
-    out = dict(pairs=pairs, hits=hits_alpha + hits_zero, hits_alpha=hits_alpha,
-               hits_zero=hits_zero, live_columns=live_cols, sh_k=k)
+    out = dict(pairs=pairs, pairs_fwd=pairs_fwd, hits=hits_alpha + hits_zero,
+               hits_alpha=hits_alpha, hits_zero=hits_zero, live_columns=live_cols,
+               live_columns_opaque=live_opaque, sh_k=k)
     for name, nbytes, ops in (
-        ("fwd", fwd_bytes, pairs * ops_pair + hits_alpha * ops_hit_fwd(k)),
+        ("fwd", fwd_bytes, pairs_fwd * ops_pair + hits_alpha * ops_hit_fwd(k)),
         ("bwd", bwd_bytes, pairs * ops_pair + hits_alpha * ops_hit12_bwd(api.backend, k)
          + hits_zero * ops_hit12_zero_bwd(k)),
     ):
@@ -1054,6 +1075,49 @@ def synthetic12(backend, t, r, s, seed, dev, sh_k=4):
     return tensors, [to(g_l), to(g_beta)], kw
 
 
+def fwd12_cases(backend, dev):
+    """The :func:`synthetic12` tile sets (16 tiles, S = 2048, seg 256) that
+    the v1 / v2 forward is held to, as (label, tensors, keywords) at
+    max_depth 128 and 8: every block size (R = 256, 512, 1024) at k = 4,
+    then R = 256 at k = 1, 9 and 16, which set the staged SH width (3 k
+    floats a column) and so the window, and the v2 instantiations over K;
+    for v1 also a set at k = 16 whose tiles keep 16, 9, 4 and 1 live basis
+    columns in turn, so that the blocks of one launch find different
+    counts. Only hits with alpha > 0 count toward the cap, and the kernels
+    skip the columns of opacity 0 that lie among the others: at max_depth
+    8 a skipped column that counted would move the cap."""
+    cases = [(r, 4, False) for r in (256, 512, 1024)] + [(256, k, False) for k in (1, 9, 16)]
+    if backend == "pallas":
+        cases.append((256, 16, True))
+    for r, k, mixed in cases:
+        tensors, _, kw = synthetic12(backend, 16, r, 2048, seed=r if k == 4 else r + k,
+                                     dev=dev, sh_k=k)
+        if mixed:
+            for ti in range(tensors[3].shape[0]):
+                tensors[3][ti, :, (16, 9, 4, 1)[ti % 4]:] = 0.0
+        for md in (128, 8):
+            yield f"R{r}_k{k}{'_mixed' if mixed else ''}_md{md}", tensors, dict(kw, max_depth=md)
+
+
+def fwd12_synthetic(backend, name, dev, details) -> list:
+    """The v1 / v2 forward on every set of :func:`fwd12_cases` against its
+    plain version (check_fwd12)."""
+    api = V12Api(backend)
+    rows = []
+    for label, tensors, kw in fwd12_cases(backend, dev):
+        t, r = tensors[0].shape[:2]
+        row = dict(case=label, T=t, R=r, S=tensors[-1].shape[1], max_depth=kw["max_depth"],
+                   **check_fwd12(api, tensors, kw, reps=5))
+        row.update(work12(api, tensors, kw))
+        rows.append(row)
+        phase(f"{name}_fwd_synthetic", **row)
+        if not row["ok"]:
+            fail(f"{name}: the forward kernel disagrees with its plain version on "
+                 f"synthetic tiles {label}")
+    details[f"{name}_fwd_synthetic"] = rows
+    return rows
+
+
 def bwd12_synthetic(backend, name, dev, details) -> list:
     """Every block size of the v1 / v2 backward (R = 256, 512 and 1024
     rays, S = 2048, seg 256, k = 4) on :func:`synthetic12` tiles against
@@ -1103,7 +1167,9 @@ def psnr_db(a, b) -> float:
 def v12_frame(backend, name, scene, camera, exact, sel, fused_img, details, out=None) -> dict:
     """Phase 12 / 14: the V12 frame through ``backend``; every forward
     launch's recorded inputs are replayed through the wrapper against the
-    plain version. Returns the kernel's numbers for the kernels line."""
+    plain version, then every block size on synthetic tiles
+    (:func:`fwd12_synthetic`). Returns the kernel's numbers for the kernels
+    line."""
     from volprim_tpu_torch.models import rf_tiled
 
     t_phase = time.perf_counter()
@@ -1142,6 +1208,15 @@ def v12_frame(backend, name, scene, camera, exact, sel, fused_img, details, out=
         rows.append(row)
         phase(f"kernel_on_{name}_inputs", **row)
     bad = [r_ for r_ in rows if not r_["ok"]]
+    if bad:
+        fail(f"{name}: the forward kernel disagrees with its plain version on "
+             f"{len(bad)} of the frame's {len(rows)} launches")
+    synth = fwd12_synthetic(backend, name, img.device, details)
+    source = "composite_fwd" if backend == "pallas" else "composite2_fwd"
+    ptxas = [{k: row_.get(k) for k in ("args", "registers", "spill_stores", "spill_loads",
+                                       "stack")}
+             for row_ in details.get("build", {}).get(source, {}).get("ptxas", [])
+             if row_["kernel"] == "fwd12_kernel"]
     phase(
         name, launches=launches, frame_ms=frame_ms, frame_ms_min=times[0],
         frame_ms_max=times[-1], mrays_per_s=WIDTH * WIDTH * SPP / (frame_ms / 1e3) / 1e6,
@@ -1150,12 +1225,13 @@ def v12_frame(backend, name, scene, camera, exact, sel, fused_img, details, out=
         device_busy_ms=busy, device_idle_share=None if busy is None else 1.0 - busy / frame_ms,
         kernel_ms=sum(r_["ms"] for r_ in rows), plain_ms=sum(r_["plain_ms"] for r_ in rows),
         rays_outside_tol=sum(r_[x]["rays_outside_tol"] for r_ in rows for x in ("L", "beta")),
-        seconds=round(time.perf_counter() - t_phase, 2),
+        fwd_synthetic_ms={r_["case"]: r_["ms"] for r_ in synth},
+        fwd_synthetic_rays_outside_tol=sum(r_[x]["rays_outside_tol"] for r_ in synth
+                                           for x in ("L", "beta")),
+        fwd_synthetic_max_abs_err=max(r_[x]["max_abs"] for r_ in synth for x in ("L", "beta")),
+        fwd_ptxas=ptxas, seconds=round(time.perf_counter() - t_phase, 2),
     )
-    details[name] = dict(times=times, launches=rows)
-    if bad:
-        fail(f"{name}: the forward kernel disagrees with its plain version on "
-             f"{len(bad)} of the frame's {len(rows)} launches")
+    details[name] = dict(times=times, launches=rows, fwd_ptxas=ptxas)
     return dict(
         launches=launches, ms=sum(r_["ms"] for r_ in rows),
         plain_ms=sum(r_["plain_ms"] for r_ in rows),

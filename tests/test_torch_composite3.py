@@ -116,17 +116,19 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     from volprim_tpu_torch.kernels import _build
 
     for name in ("composite3_fwd.cu", "composite3_fwd.cuh", "composite3_bwd.cu",
-                 "composite3_common.cuh"):
+                 "composite3_common.cuh", "tile_common.cuh"):
         (tmp_path / name).write_bytes((_build.CSRC_DIR / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
     assert [p.name for p in _build._sources("composite3_bwd")] == [
-        "composite3_bwd.cu", "composite3_common.cuh",
+        "composite3_bwd.cu", "composite3_common.cuh", "tile_common.cuh",
     ]
-    before = {n: _build.library_path(n) for n in ("composite3_fwd", "composite3_bwd")}
-    header = tmp_path / "composite3_common.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {n: _build.library_path(n) for n in before}
-    assert all(after[n] != before[n] for n in before)
+    # a header the source includes, and one that header includes
+    for header in ("composite3_common.cuh", "tile_common.cuh"):
+        before = {n: _build.library_path(n) for n in ("composite3_fwd", "composite3_bwd")}
+        path = tmp_path / header
+        path.write_text(path.read_text() + "\n// edited\n")
+        after = {n: _build.library_path(n) for n in before}
+        assert all(after[n] != before[n] for n in before), header
 
 
 @pytest.mark.parametrize("launch", ["_launch", "_launch_bwd"])

@@ -111,17 +111,6 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int k) {
   return pos;
 }
 
-// pair_hit with an early miss. Where 0 < a < 1e20 e2 and e2 - q < 0,
-// |e2 - q| is at least e2's f32 spacing (or e2), so disc = (e2 - q) / a is
-// negative and not 0, and pair_hit returns false: the same decision,
-// without its two further divides and square root (most pairs miss so).
-__device__ __forceinline__ bool pair_hit_walk(float a, float b, float c,
-                                              float opac, float e2, Hit& h) {
-  const float q = fmaxf(c - b * b / a, 0.0f);
-  if (a > 0.0f && a < 1e20f * e2 && e2 - q < 0.0f) return false;
-  return pair_hit(a, b, c, opac, e2, h);
-}
-
 // v1's backward policy: the forward's pair math (V1) on a ray that holds
 // the k live basis columns only.
 template <int K>
@@ -503,9 +492,9 @@ __global__ void __launch_bounds__(NT, bwd_min_blocks<NT>())
               const float w = expf(lb) * h.alpha;
               const float* shc = s_sh + c * 3 * K;
               const float g_w =
-                  gl0 * fmaxf(emission<K>(ray.basis, shc, live), 0.0f) +
-                  gl1 * fmaxf(emission<K>(ray.basis, shc + K, live), 0.0f) +
-                  gl2 * fmaxf(emission<K>(ray.basis, shc + 2 * K, live), 0.0f);
+                  gl0 * fmaxf(emission<K>(ray.basis, shc, K, live), 0.0f) +
+                  gl1 * fmaxf(emission<K>(ray.basis, shc + K, K, live), 0.0f) +
+                  gl2 * fmaxf(emission<K>(ray.basis, shc + 2 * K, K, live), 0.0f);
               sum_glw += static_cast<double>(g_w * w);
             }
             lb = lb + log1pf(-h.alpha);
@@ -551,9 +540,9 @@ __global__ void __launch_bounds__(NT, bwd_min_blocks<NT>())
           const float dens = expf(-0.5f * fmaxf(cc - b * b / a, 0.0f));
           float g_w = 0.0f;
           if (alive)
-            g_w = gl0 * fmaxf(emission<K>(ray.basis, shc, live), 0.0f) +
-                  gl1 * fmaxf(emission<K>(ray.basis, shc + K, live), 0.0f) +
-                  gl2 * fmaxf(emission<K>(ray.basis, shc + 2 * K, live), 0.0f);
+            g_w = gl0 * fmaxf(emission<K>(ray.basis, shc, K, live), 0.0f) +
+                  gl1 * fmaxf(emission<K>(ray.basis, shc + K, K, live), 0.0f) +
+                  gl2 * fmaxf(emission<K>(ray.basis, shc + 2 * K, K, live), 0.0f);
           const float g_alpha =
               (alive ? g_w * exp_lw : 0.0f) + g_logt * -1.0f;
           sc[3 * NT] = g_alpha * dens;
@@ -565,9 +554,9 @@ __global__ void __launch_bounds__(NT, bwd_min_blocks<NT>())
         float ge0 = 0.0f, ge1 = 0.0f, ge2 = 0.0f;
         if (alive) {
           w = exp_lw * h.alpha;
-          const float e0 = emission<K>(ray.basis, shc, live);
-          const float e1 = emission<K>(ray.basis, shc + K, live);
-          const float e2 = emission<K>(ray.basis, shc + 2 * K, live);
+          const float e0 = emission<K>(ray.basis, shc, K, live);
+          const float e1 = emission<K>(ray.basis, shc + K, K, live);
+          const float e2 = emission<K>(ray.basis, shc + 2 * K, K, live);
           g_w = gl0 * fmaxf(e0, 0.0f) + gl1 * fmaxf(e1, 0.0f) +
                 gl2 * fmaxf(e2, 0.0f);
           ge0 = e0 > 0.0f ? gl0 * w : 0.0f;

@@ -26,15 +26,9 @@
 // Then the kernels and the plain versions take the same hit decisions and
 // differ by the ulps of expf / log1pf and the order of later sums.
 //
-// The forward: one block per tile, one thread per ray (R <= 1024). Each
-// segment's columns are staged in shared memory as 12-float records (the
-// live features and the opacity) and 3K-float SH rows; every thread walks
-// them in stream order. What bounds it on this card: FP32 issue per (ray,
-// column) pair (the pair math runs for all of the tile's S columns; v1 and
-// v2 have no compaction), not device-memory bytes (a tile's columns are
-// read once while every column meets R rays). The backward
-// (composite12_bwd.cuh) stages and walks the same way and takes every hit,
-// cap and beta_kill decision through the same functions.
+// The forward (composite12_fwd.cuh) and the backward (composite12_bwd.cuh)
+// walk each ray's columns in stream order and take every hit, cap and
+// beta_kill decision through the functions here (pair_hit_walk, pair_hit).
 
 #pragma once
 
@@ -116,11 +110,11 @@ __device__ __forceinline__ void sh_basis(float dx, float dy, float dz,
 }
 
 // v1: column record [p0..p9, opac, 0]; a, b, c = fa . p, fb . p, fc . p
-// over features 0..9. The basis is an input with all 16 columns.
+// over features 0..9. The ray holds fa, fb, fc; the basis [T, R, 16] is an
+// input that each kernel reads itself.
 struct V1 {
-  static constexpr int kK = kSH;
   struct Ray {
-    float fa[10], fb[10], fc[10], basis[kK];
+    float fa[10], fb[10], fc[10];
   };
   __device__ static void load_ray(const Args& A, int t, int r, bool ok,
                                   Ray& ray) {
@@ -131,15 +125,13 @@ struct V1 {
       ray.fb[i] = ok ? A.ray1[o + i] : 0.0f;
       ray.fc[i] = ok ? A.ray2[o + i] : 0.0f;
     }
-#pragma unroll
-    for (int k = 0; k < kK; ++k) ray.basis[k] = ok ? A.ray3[o + k] : 0.0f;
   }
   __device__ static float record(const Args& A, int t, int col, int i) {
     const size_t tc = static_cast<size_t>(t) * A.S + col;
     if (i < 10) return A.pf[tc * kFeat + i];
     return i == 10 ? A.col[tc] : 0.0f;
   }
-  // any ray type with fa, fb, fc (the backward's carries fewer basis columns)
+  // any ray type with fa, fb, fc (the backward's also carries its basis)
   template <class R>
   __device__ static void coeffs(const R& r, const float4 m0, const float4 m1,
                                 const float4 m2, float& a, float& b,
@@ -223,17 +215,42 @@ __device__ __forceinline__ bool pair_hit(float a, float b, float c,
   return true;
 }
 
-// basis . sh of one channel, summed over k = 0, 1, ..., then + 0.5. Bits
-// of `live` clear mark basis columns that are 0 for every ray of the warp
-// (v1's 16-column basis carries 16 - k zero columns): their terms are
-// exactly 0 for a finite table, so they are skipped.
-template <int K>
+// pair_hit's miss, decided early. Where 0 < a < 1e20 e2 and e2 - q < 0,
+// |e2 - q| is at least e2's f32 spacing (or e2), so disc = (e2 - q) / a is
+// negative and not 0, and pair_hit returns false: the same decision,
+// without its two further divides and square root (most pairs miss so).
+__device__ __forceinline__ bool early_miss(float a, float b, float c,
+                                           float e2) {
+  const float q = fmaxf(c - b * b / a, 0.0f);
+  return a > 0.0f && a < 1e20f * e2 && e2 - q < 0.0f;
+}
+
+// pair_hit with the early miss: the hit decision of both walks, the
+// forward's and the backward's, so that they take the same hits.
+__device__ __forceinline__ bool pair_hit_walk(float a, float b, float c,
+                                              float opac, float e2, Hit& h) {
+  if (early_miss(a, b, c, e2)) return false;
+  return pair_hit(a, b, c, opac, e2, h);
+}
+
+// basis . sh of one channel over the first n (<= K) basis columns, summed
+// k = 0, 1, ..., then + 0.5: the emission of the forward and the backward
+// alike. Bits of `live` clear mark basis columns that are 0 for every ray
+// of the warp (the backward's live_columns; v1's 16-column basis carries
+// 16 - k zero columns): their terms are exactly 0 for a finite table, so
+// they are skipped. The ray's basis is basis[k * BS]: registers (BS = 1,
+// the backward: n = K, the loop unrolled, indices constant) or its column
+// of shared rows of stride BS (the forward: n is its block's live count,
+// v1's known only at run time, so four columns a step; it passes every
+// bit of `live` set, since a test per column costs more in its divergent
+// hit path than the exact zeros it would skip).
+template <int K, int BS = 1>
 __device__ __forceinline__ float emission(const float* basis, const float* sh,
-                                          unsigned live) {
+                                          int n, unsigned live) {
   float e = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (live >> k & 1u) e = e + basis[k] * sh[k];
+#pragma unroll (BS == 1 ? K : 4)
+  for (int k = 0; k < n; ++k)
+    if (live >> k & 1u) e = e + basis[k * BS] * sh[k];
   return e + 0.5f;
 }
 
@@ -276,77 +293,9 @@ __device__ __forceinline__ void load_record(const float* s_rec, int c,
   m2 = rec[2];  // m2.z is the opacity
 }
 
-template <class P>
-__global__ void __launch_bounds__(kMaxRays) fwd_kernel(const Args A) {
-  constexpr int K = P::kK;
-  extern __shared__ __align__(16) float smem[];
-  float* s_rec = smem;
-  float* s_sh = s_rec + A.seg * kRec;
-  const int t = blockIdx.x, tid = threadIdx.x;
-  const bool ray_ok = tid < A.R;
-  typename P::Ray ray;
-  P::load_ray(A, t, tid, ray_ok, ray);
-  const unsigned live = live_columns<K>(ray.basis);
-
-  float log_beta = 0.0f, l0 = 0.0f, l1 = 0.0f, l2 = 0.0f;
-  int count = 0;
-  const int n_seg = A.S / A.seg;
-  for (int si = 0; si < n_seg; ++si) {
-    const bool active = ray_ok && count <= A.max_depth;
-    // also the barrier that retires the previous segment's shared reads
-    if (!__syncthreads_or(active)) break;  // every ray capped: alpha 0 on
-    stage<P>(A, t, si * A.seg, s_rec, s_sh);
-    __syncthreads();
-    if (!active) continue;
-    for (int c = 0; c < A.seg; ++c) {
-      float4 m0, m1, m2;
-      load_record(s_rec, c, m0, m1, m2);
-      float a, b, cc;
-      P::coeffs(ray, m0, m1, m2, a, b, cc);
-      Hit h;
-      if (!pair_hit(a, b, cc, m2.z, A.e2, h)) continue;
-      if (!(h.alpha > 0.0f)) continue;
-      if (++count > A.max_depth) break;  // capped: every later alpha is 0
-      if (log_beta > A.log_kill) {
-        const float w = expf(log_beta) * h.alpha;
-        const float* shc = s_sh + c * 3 * K;
-        l0 = l0 + w * fmaxf(emission<K>(ray.basis, shc, live), 0.0f);
-        l1 = l1 + w * fmaxf(emission<K>(ray.basis, shc + K, live), 0.0f);
-        l2 = l2 + w * fmaxf(emission<K>(ray.basis, shc + 2 * K, live), 0.0f);
-      }
-      // past the beta_kill cutoff beta still falls: it is an output
-      log_beta = log_beta + log1pf(-h.alpha);
-    }
-  }
-  if (ray_ok) {
-    const size_t o = static_cast<size_t>(t) * A.R + tid;
-    A.out_l[3 * o + 0] = l0;
-    A.out_l[3 * o + 1] = l1;
-    A.out_l[3 * o + 2] = l2;
-    A.out_beta[o] = expf(log_beta);
-  }
-}
-
 inline bool bad_sizes(int T, const Args& A) {
   return T < 0 || A.R < 1 || A.R > kMaxRays || A.seg < 1 || A.S < A.seg ||
          A.S % A.seg != 0;
-}
-
-template <class P>
-cudaError_t launch_fwd(const Args& A, int T, cudaStream_t stream) {
-  if (bad_sizes(T, A)) return cudaErrorInvalidValue;
-  if (T == 0) return cudaSuccess;
-  const int threads = (A.R + 31) / 32 * 32;
-  const size_t smem =
-      static_cast<size_t>(A.seg) * (kRec + 3 * P::kK) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  fwd_kernel<P><<<T, threads, smem, stream>>>(A);
-  return cudaGetLastError();
 }
 
 }  // namespace composite12

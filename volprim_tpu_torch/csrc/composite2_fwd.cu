@@ -4,11 +4,22 @@
 // (_fwd_kernel, called from _forward :307). The plain PyTorch version of the
 // same function is composite_tiles2_reference in
 // volprim_tpu_torch/kernels/composite2.py; composite_tiles2 there launches
-// this kernel for CUDA tensors. The pair math, the walk and what bounds it
-// are described in composite12_common.cuh (policy V2<K>: a = F6(d) . M6,
-// b = d . U, c = c0, F6 and the SH basis of degree sqrt(K) - 1 built from d).
+// this kernel for CUDA tensors. The pair math is composite12_common.cuh's
+// (policy V2<K>: a = F6(d) . M6, b = d . U, c = c0, F6 and the SH basis of
+// degree sqrt(K) - 1 built from d); the kernel is fwd12_kernel<2, K, NT> of
+// composite12_fwd.cuh.
+//
+// What bounds it on this card: FP32 issue per (ray, column) pair on the
+// columns of opacity > 0, about 16 instructions for a and b and 20 for q
+// and the early miss per pair, not device-memory bytes. The design
+// (composite12_fwd.cuh): those columns alone, compacted in order into one
+// cp.async staging buffer (a second measured slower at four blocks per
+// SM); pair_hit_walk's early miss, two columns per branch; the k live SH
+// coefficients; warps on pixel patches; 256 / 512 / 1024-thread
+// instantiations whose 256-thread build keeps four blocks on an SM
+// without spills at k = 4.
 
-#include "composite12_common.cuh"
+#include "composite12_fwd.cuh"
 
 using namespace composite12;
 
@@ -35,16 +46,8 @@ extern "C" int composite2_fwd(const void* d8, const void* pf, const void* aux,
   A.e2 = e2;
   A.max_depth = max_depth;
   A.log_kill = log_kill;
-  const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (k) {
-    case 1: e = launch_fwd<V2<1>>(A, T, st); break;
-    case 4: e = launch_fwd<V2<4>>(A, T, st); break;
-    case 9: e = launch_fwd<V2<9>>(A, T, st); break;
-    case 16: e = launch_fwd<V2<16>>(A, T, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(
+      launch_fwd2(A, T, k, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* composite2_fwd_error_string(int code) {

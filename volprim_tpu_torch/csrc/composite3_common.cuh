@@ -31,6 +31,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tile_common.cuh"
+
 namespace composite3 {
 
 constexpr int kFeat = 16;       // rows of the packed column table
@@ -268,19 +270,7 @@ __device__ __forceinline__ int compact_stream(const float* __restrict__ pft,
   return live;
 }
 
-// ---- rays of a thread, and the warp cull ----------------------------------
-
-// The ray a thread holds: with R == NT and NT a multiple of 256, each 256
-// rays are a 16 x 16 pixel block in row-major order and warp w of it takes
-// the 4 x 8 patch (rows 4 (w / 2) .., columns 8 (w % 2) ..); else the
-// thread's own index.
-__device__ __forceinline__ int ray_of_thread(int tid, int R, int NT) {
-  if (R != NT || (NT & 255) != 0) return tid;
-  const int group = tid & ~255, local = tid & 255;
-  const int w = local >> 5, lane = local & 31;
-  const int row = 4 * (w >> 1) + (lane >> 3), col = 8 * (w & 1) + (lane & 7);
-  return group + 16 * row + col;
-}
+// ---- the warp cull ----------------------------------------------------------
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -432,22 +422,6 @@ __device__ __forceinline__ void warp_survivors(const float* s_cone,
 }
 
 // ---- asynchronous staging ---------------------------------------------------
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// waits until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // One staging buffer: the segment's columns as [seg][16] f32 records (rows
 // 13 and 15 are not staged: no kernel reads them), their SH words

@@ -4,11 +4,23 @@
 // (_kernel, called from composite_tiles :119). The plain PyTorch version of
 // the same function is composite_tiles_reference in
 // volprim_tpu_torch/kernels/composite.py; the wrapper composite_tiles there
-// launches this kernel for CUDA tensors. The pair math, the walk and what
-// bounds it are described in composite12_common.cuh (policy V1: a, b, c as
-// three 10-term dot products of ray and primitive features).
+// launches this kernel for CUDA tensors. The pair math is
+// composite12_common.cuh's (policy V1: a, b, c as three 10-term dot
+// products of ray and primitive features); the kernel is fwd12_kernel<1,
+// 16, NT> of composite12_fwd.cuh, which finds the basis columns that are
+// live in its tile itself.
+//
+// What bounds it on this card: FP32 issue per (ray, column) pair on the
+// columns of opacity > 0, about 57 instructions of dot products and 20 of
+// q and the early miss per pair, not device-memory bytes. The design
+// (composite12_fwd.cuh): those columns alone, compacted in order into
+// cp.async double buffers (the shortlist's padding and any opacity-0
+// column cost no pair math); pair_hit_walk's early miss, two columns per
+// branch; the live SH coefficients only (found per block); warps on
+// pixel patches; 256 / 512 / 1024-thread instantiations whose 256-thread
+// build keeps three blocks on an SM without spills.
 
-#include "composite12_common.cuh"
+#include "composite12_fwd.cuh"
 
 using namespace composite12;
 
@@ -40,7 +52,7 @@ extern "C" int composite_fwd(const void* fa, const void* fb, const void* fc,
   A.max_depth = max_depth;
   A.log_kill = log_kill;
   return static_cast<int>(
-      launch_fwd<V1>(A, T, static_cast<cudaStream_t>(stream)));
+      launch_fwd1(A, T, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* composite_fwd_error_string(int code) {
