@@ -15,10 +15,12 @@ print one line:
    composite_fwd/_bwd, composite2_fwd/_bwd, clone) from this checkout, one
    process each, started together, and prints ptxas's registers, stack and
    spill bytes for every instantiation of the v3 compositors (k, band,
-   threads) and of the v1 / v2 forward and backward (version, k, threads);
-   it fails if a k = 4 instantiation of the path (v3 unbanded, the v1 / v2
-   forward and backward; v1's forward has one build per block size, which
-   takes every k) at 256 or 512 threads spills (spill_gated);
+   threads), of the v1 / v2 forward and backward (version, k, threads) and
+   of the walk (slots per lane: 1, 2, 0 for shared memory); it fails if a
+   k = 4 instantiation of the path (v3 unbanded, the v1 / v2 forward and
+   backward; v1's forward has one build per block size, which takes every
+   k) at 256 or 512 threads spills, or the walk's k <= 32 one
+   (spill_gated);
 3. kernel: the forward kernel against its plain PyTorch version at the
    headline shapes (T=64 tiles, R=512 rays, S=2048 and 8192 columns, seg
    256, k=4, bf16 SH, compaction on and off), with CUDA-event timings;
@@ -48,13 +50,16 @@ phase 2 with the compositors):
 
 9. ffwalk_kernel: the walk's wrapper ffwalk.walk (which launches the
    kernel) against its plain version on the tables the port collects for
-   65,536 plume camera rays, in six variants (ffwalk.WALK_VARIANTS: K' / k
-   / windows 256/32/4, 128/8/4, 64/64/1, surface caps on half the rays, a
-   finite budget, the solver disabled);
+   65,536 plume camera rays, in eight variants (ffwalk.WALK_VARIANTS: K' /
+   k / windows 256/32/4, 128/8/4, 64/64/1, surface caps on half the rays,
+   a finite budget, the solver disabled, the walk started at the jump
+   boundary, long intervals open across windows);
 10. prb_frame: one counted frame whose walk launches are recorded and then
    replayed through ffwalk.walk, each held against the plain version on its
-   own inputs (bounce 0's launches and the largest later one are printed),
-   then a warm-up and three timed frames;
+   own inputs (bounce 0's launches and the largest later one are printed;
+   walk_ms_per_frame sums their launch_ms, walk_kernel_ms_per_frame the
+   kernel's own device time from torch.profiler), then a warm-up and three
+   timed frames;
 11. prb_absorbing: the plume with albedo 0 under a unit sky, where each
    ray's radiance is 1 with probability T: the mean radiance of the
    512x512 unjittered rays against the mean of prb.transmittance, within 4
@@ -357,6 +362,24 @@ def launch_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def kernel_device_ms(fn, name: str):
+    """Device ms of the kernels whose name holds ``name`` in one call of
+    fn(), from torch.profiler's device-side rows; a trace that holds none
+    of them is taken again, three times at most (None if none did)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        if rows:
+            return sum(e.self_device_time_total for e in rows) / 1e3
+    return None
 
 
 def compare(got, want, n_rays: int) -> dict:
@@ -711,14 +734,16 @@ def ptxas_table(log: str) -> list:
     ``-Xptxas -v`` log, with the template arguments of the compositors'
     instantiations (fwd3_kernel: k, banded, threads, ablation; bwd3_kernel:
     k, banded, threads; banded is 0 or 1; fwd12_kernel and bwd12_kernel,
-    the v1 / v2 forward and backward: version, k, threads)."""
+    the v1 / v2 forward and backward: version, k, threads) and of the walk
+    (ffwalk_kernel: slots per lane, 0 for shared memory)."""
     rows, cur = [], None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
         if m:
             cur = m.group(1)
             if not rows or rows[-1]["function"] != cur:
-                inst = re.search(r"((?:fwd|bwd)(?:3|12)_kernel)I((?:L[ib](?:n?\d+)E)+)E", cur)
+                inst = re.search(
+                    r"((?:fwd|bwd)(?:3|12)_kernel|ffwalk_kernel)I((?:L[ib](?:n?\d+)E)+)E", cur)
                 rows.append(dict(function=cur, kernel=inst.group(1) if inst else None,
                                  args=[int(x.replace("n", "-")) for x in
                                        re.findall(r"L[ib](n?\d+)E", inst.group(2))] if inst else None))
@@ -738,8 +763,12 @@ def spill_gated(source, row) -> bool:
     """Whether a ptxas_table row of ``csrc/<source>.cu`` is one that must
     not spill: the path's k = 4 compositor instantiations at 256 and 512
     threads (v3 unbanded, forward and backward; the v1 / v2 backwards; the
-    v2 forward and v1's, whose one build per block size takes every k)."""
-    args = row["args"]  # threads third in every compositor's arguments
+    v2 forward and v1's, whose one build per block size takes every k), and
+    the walk's at k <= 32 (one slot per lane)."""
+    args = row["args"]
+    if row["kernel"] == "ffwalk_kernel":
+        return source == "ffwalk" and args == [1]
+    # threads third in every compositor's arguments
     if not args or args[2] not in (256, 512):
         return False
     if row["kernel"] in ("fwd3_kernel", "bwd3_kernel"):
@@ -794,7 +823,9 @@ def walk_work(args, kw, work) -> dict:
     these inputs make the walk do. Bytes: entry and exit of the longest
     prefix of each row that a window scans, cp, alpha and beta of the
     intervals a window selects, and four [R] floats plus the active byte
-    read once; four flag bytes and t_samp written once."""
+    read once; four flag bytes and t_samp written once. ``design_bytes``
+    is what csrc/ffwalk.cu reads and writes instead: entry and exit in
+    whole 128-interval groups up to that prefix (group 0 of every row)."""
     r = args[0].shape[0]
     kw = walk_kwargs(kw)
     nbytes = (work.get("scanned_max", 0) * 2 * 4 + work.get("selected_union", 0) * 3 * 4
@@ -804,7 +835,9 @@ def walk_work(args, kw, work) -> dict:
            + (2 * work.get("selected", 0) + per_found * work.get("selected_found", 0))
            * OPS_ERF_TERM)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+    design = (work.get("group_entries", 0) * 2 * 4 + work.get("selected_union", 0) * 3 * 4
+              + r * (4 * 4 + 1) + r * (4 + 4))
+    return dict(bytes=nbytes, design_bytes=design, ops=ops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations", work=work)
 
 
@@ -1696,7 +1729,7 @@ def main() -> None:
         phase("build", kernel=name, seconds=seconds,
               nvcc_seconds=round(info.get("seconds", 0.0), 2), instantiations=len(table))
         for row in table:
-            if row["kernel"]:  # the compositors: one line per instantiation
+            if row["kernel"]:  # the compositors and the walk: one line per instantiation
                 phase("ptxas", source=name, kernel=row["kernel"], args=row["args"],
                       registers=row["registers"], spill_stores=row.get("spill_stores"),
                       spill_loads=row.get("spill_loads"), stack=row.get("stack"))
@@ -1704,7 +1737,8 @@ def main() -> None:
                 spilled.append(row)
         details.setdefault("build", {})[name] = dict(seconds=seconds, ptxas=table)
     if spilled:
-        fail(f"k=4 compositor instantiations on the path spill: {spilled}")
+        fail(f"instantiations on the path spill (compositors at k = 4, the walk at k <= 32): "
+             f"{spilled}")
 
     # ---- 3. kernel vs plain version at the headline shapes ---------------
     checks = []
@@ -2087,6 +2121,8 @@ def main() -> None:
             plain_ms=cuda_ms(lambda: ffwalk.walk_reference(*a, **k), 2, warmup=1),
             **walk_work(a, k, wk),
         ))
+    walk_kernel_ms = kernel_device_ms(
+        lambda: [ffwalk._launch(*a, **k) for _, a, k in recorded_walks], "ffwalk_kernel")
     del recorded_walks, got, want
     walk_ms = sum(r_["ms"] for r_ in launch_rows)
     walk_plain_ms = sum(r_["plain_ms"] for r_ in launch_rows)
@@ -2116,8 +2152,11 @@ def main() -> None:
         dead_share_bounce0=ff_stats[0]["dead"] / max(ff_stats[0]["live"], 1),
         mean_radiance=[float(x) for x in pimg.reshape(-1, 3).mean(0)],
         peak_mem_gib=prb_peak_gib, counted_frame_s=round(counted_s, 2),
-        walk_ms_per_frame=walk_ms, walk_plain_ms_per_frame=walk_plain_ms,
+        walk_ms_per_frame=walk_ms, walk_kernel_ms_per_frame=walk_kernel_ms,
+        walk_plain_ms_per_frame=walk_plain_ms,
         walk_bound_ms_per_frame=walk_bound_ms,
+        walk_bytes_per_frame=sum(r_["bytes"] for r_ in launch_rows),
+        walk_design_bytes_per_frame=sum(r_["design_bytes"] for r_ in launch_rows),
         walk_rays_per_frame=sum(r_["rays"] for r_ in launch_rows),
         walk_launches_compared=len(launch_rows),
         walk_rays_differ=sum(r_["decisions_differ"] + r_["t_outside_tol"] for r_ in launch_rows),

@@ -8,9 +8,16 @@ only at f32 rounding boundaries (at most 1% of rays; the window depth is a
 sum taken in another order), sampled distances agree within atol 5e-3 +
 rtol 1e-3 (the solver's resolution), albedo within 1e-3. The walk itself
 on identical tables is held tighter: decisions identical on at least 99%
-of rays, and each test prints the largest t_samp difference it saw."""
+of rays, and each test prints the largest t_samp difference it saw, in
+each of ffwalk.WALK_VARIANTS (among them the walk started at the jump
+boundary and long intervals open across windows). chip_smoke.py's reader
+of ptxas's rows and its spill gate for the walk's instantiations, and the
+ctypes argument types against the C declaration, are checked here too."""
 
+import ctypes
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -107,6 +114,15 @@ def test_walk_reference_matches_jax_kernel(name):
         assert got[3].any()
     if name == "t_budget":
         assert got[2].any()
+    if name == "jump_start":  # some rays start past the first block
+        t0 = tb["t_min0"]
+        assert (t0 > 0).any() and (t0 == 0).any()
+    if name == "long_open":  # intervals 0 and 37 end at the row's last exit
+        ex = tb["exit_t"]
+        last = torch.amax(torch.where(torch.isfinite(ex), ex, -torch.inf), 1)
+        fin = torch.isfinite(tb["entry"][:, 37])
+        assert fin.any() and torch.equal(ex[fin, 37], last[fin])
+        assert torch.equal(ex[:, 0], last)
 
 
 def test_walk_work_counts_what_the_rays_walk():
@@ -121,6 +137,8 @@ def test_walk_work_counts_what_the_rays_walk():
     assert work["windows"] <= work["scanned"] <= 256 * work["windows"]
     assert work["selected_union"] <= work["selected"]
     assert work["selected_union"] <= work["scanned_max"] <= work["scanned"]
+    r = tb["entry"].shape[0]
+    assert 128 * r <= work["group_entries"] <= 256 * r  # K' = 256: one or two groups a row
     # one ray, five intervals open from 0, padding after them: a window reads
     # up to its (k+1)-th open interval, or up to the first padding entry
     inf = torch.inf
@@ -135,6 +153,7 @@ def test_walk_work_counts_what_the_rays_walk():
         work = {}
         ffwalk.walk_reference(*row.values(), k=k, n_windows=1, work=work)
         assert (work["scanned"], work["scanned_max"]) == (scanned, scanned)
+        assert work["group_entries"] == 8  # one group, cut to the row's 8 entries
         assert work["selected_union"] == min(k, 5)
 
 
@@ -179,6 +198,38 @@ def test_walk_wrapper_routes_by_device():
     big = {key: torch.zeros((4, 1056)) if v.dim() == 2 else v[:4] for key, v in tb.items()}
     with pytest.raises(ValueError, match="K' <= 1024"):
         ffwalk._launch(*big.values(), 8, 4, 22, 4, False)
+
+
+def test_ptxas_table_reads_the_walk_instantiations():
+    """chip_smoke.py prints ptxas's row of each walk instantiation (slots
+    per lane: 1, 2, or 0 for shared memory) and fails if the path's, one
+    slot per lane (k <= 32), spills."""
+    import chip_smoke
+
+    fn = "_ZN12_GLOBAL__N_113ffwalk_kernelILi{}EEEvPKfS2_"
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{fn.format(s)}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {fn.format(s)}\n"
+        f"    0 bytes stack frame, {sp} bytes spill stores, {sp} bytes spill loads\n"
+        f"ptxas info    : Used {reg} registers\n"
+        for s, sp, reg in ((1, 0, 56), (2, 8, 72), (0, 0, 40)))
+    table = chip_smoke.ptxas_table(log)
+    assert [(r["kernel"], r["args"], r["registers"], r["spill_stores"]) for r in table] == [
+        ("ffwalk_kernel", [1], 56, 0), ("ffwalk_kernel", [2], 72, 8),
+        ("ffwalk_kernel", [0], 40, 0)]
+    assert [chip_smoke.spill_gated("ffwalk", r) for r in table] == [True, False, False]
+
+
+def test_walk_argtypes_follow_the_c_declaration(monkeypatch):
+    src = (Path(ffwalk.__file__).resolve().parent.parent / "csrc" / "ffwalk.cu").read_text()
+    decl = re.search(r'extern "C" int ffwalk\(([^)]*)\)', src).group(1)
+    types = [re.sub(r"\s*\w+$", "", a.strip()).replace(" *", "*") for a in decl.split(",")]
+    ctype = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
+    argtypes = []
+    monkeypatch.setattr(ffwalk._build, "bind",
+                        lambda name, types_, entry=None: argtypes.extend(types_))
+    ffwalk._lib()
+    assert [ctype[t] for t in types] == argtypes
 
 
 def test_walk_detaches_its_inputs():

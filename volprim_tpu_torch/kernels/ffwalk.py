@@ -61,7 +61,10 @@ def walk_reference(
     intervals ``selected`` in them, intervals selected in the windows where
     a ray was found, and per ray the longest prefix any window scanned
     (``scanned_max``) and the intervals any window selected
-    (``selected_union``): the table entries the walk must read at all."""
+    (``selected_union``): the table entries the walk must read at all;
+    ``group_entries`` counts the entries of the 128-interval groups of each
+    row that prefix reaches (at least one group), what the CUDA kernel
+    reads of entry and exit."""
     entry, exit_t = _cap_big(entry.detach()), _cap_big(exit_t.detach())
     cp, al, be = cp.detach(), alpha.detach(), beta.detach()
     t_budget = _cap_big(t_budget.detach())[:, None]
@@ -172,6 +175,9 @@ def walk_reference(
     if work is not None:
         work["scanned_max"] = work.get("scanned_max", 0) + int(scanned_max.sum())
         work["selected_union"] = work.get("selected_union", 0) + int(ever_sel.sum())
+        groups = torch.clamp(torch.div(scanned_max + 127, 128, rounding_mode="floor"), min=1)
+        entries = torch.clamp(groups * 128, max=fin.shape[1])
+        work["group_entries"] = work.get("group_entries", 0) + int(entries.sum())
     return found[:, 0], resolved[:, 0], bdead[:, 0], capres[:, 0], t_samp[:, 0]
 
 
@@ -206,7 +212,8 @@ def _launch(entry, exit_t, cp, alpha, beta, chi, t_budget, t_cap, active, t_min0
         z = torch.zeros(0, dtype=torch.bool, device=dev)
         return z, z, z, z, torch.zeros(0, device=dev)
     lib = _lib()
-    flags = torch.empty((4, r), dtype=torch.uint8, device=dev)
+    # the kernel writes bytes 0 / 1: each row is a torch.bool view as it is
+    flags = torch.empty((4, r), dtype=torch.bool, device=dev)
     t_samp = torch.empty((r,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.ffwalk(
@@ -217,7 +224,6 @@ def _launch(entry, exit_t, cp, alpha, beta, chi, t_budget, t_cap, active, t_min0
         )
     _build.raise_on(lib, err, "ffwalk")
     walk.launches += 1
-    flags = flags.bool()
     return flags[0], flags[1], flags[2], flags[3], t_samp
 
 
@@ -279,7 +285,8 @@ def synthetic_tables(prims, o, d, kp: int, seed: int = 0, chunk_size: int = 1024
 # The variants the kernel is held to against its plain version: the
 # path tracer's default K' / k / windows, the JAX bench's (128, 8, 4), the
 # exact global mode (k = K', one window), surface caps on half of the rays,
-# a finite collection budget, and the solver disabled.
+# a finite collection budget, the solver disabled, the walk started at the
+# jump boundary, and long intervals that stay open across windows.
 WALK_VARIANTS = {
     "kp256_k32_w4": dict(kp=256, k=32, n_windows=4),
     "kp128_k8_w4": dict(kp=128, k=8, n_windows=4),
@@ -287,7 +294,23 @@ WALK_VARIANTS = {
     "t_cap_half": dict(kp=256, k=32, n_windows=4, t_cap_half=True),
     "t_budget": dict(kp=256, k=32, n_windows=4, t_budget=True),
     "solver_disabled": dict(kp=256, k=32, n_windows=4, solver_disabled=True),
+    "jump_start": dict(kp=256, k=32, n_windows=4, jump_start=True),
+    "long_open": dict(kp=256, k=32, n_windows=4, long_open=True),
 }
+
+
+def _depths(tb: dict, t: torch.Tensor) -> torch.Tensor:
+    """Each interval's depth [R, K'] from its entry up to t [R] (clamped to
+    [entry, exit], as the walk's F_w; t = inf gives whole intervals, as
+    ``models.prb`` collects them), 0 on padding."""
+    fin = torch.isfinite(tb["entry"])
+    e = torch.where(fin, tb["entry"], 0.0)
+    x = torch.where(fin, tb["exit_t"], 0.0)
+    al, be = tb["alpha"], tb["beta"]
+    tc = torch.minimum(torch.maximum(t[:, None], e), x)
+    return torch.where(
+        fin, torch.clamp(tb["cp"] * (torch.erf(al * tc + be) - torch.erf(al * e + be)), min=0.0),
+        0.0)
 
 
 def walk_variant(tables: dict, name: str, seed: int = 0):
@@ -295,9 +318,13 @@ def walk_variant(tables: dict, name: str, seed: int = 0):
     ``WALK_VARIANTS``, cut from tables collected at K' >= 256: the first K'
     intervals (the K' nearest) with the collection's own budget; for
     ``t_cap_half`` a cap just past the 17th entry on a numpy-seeded half of
-    the rays; for ``t_budget`` a budget at the 49th entry."""
+    the rays; for ``t_budget`` a budget at the 49th entry; for
+    ``jump_start`` t_min0 at the jump boundary, the entry of interval jb * k
+    as ``models.prb._jump_walk`` picks it from the tables' chi, and chi less
+    the depth up to there; for ``long_open`` the exit of every 37th of the
+    first 64 intervals stretched to the row's last finite exit."""
     v = WALK_VARIANTS[name]
-    kp = v["kp"]
+    kp, k = v["kp"], v["k"]
     tb = {key: x[:, :kp].contiguous() if x.dim() == 2 else x for key, x in tables.items()}
     entry = tb["entry"]
     r, dev = entry.shape[0], entry.device
@@ -308,6 +335,24 @@ def walk_variant(tables: dict, name: str, seed: int = 0):
         tb["t_cap"] = torch.where(half & (count > 16), entry[:, 16] + 0.05, torch.inf)
     if v.get("t_budget"):
         tb["t_budget"] = torch.where(count > 48, entry[:, 48], torch.inf)
-    kw = dict(k=v["k"], n_windows=v["n_windows"],
-              solver_disabled=v.get("solver_disabled", False))
+    if v.get("jump_start"):
+        # models.prb._jump_walk's block jump
+        tau_fin = _depths(tb, torch.full((r,), torch.inf, device=dev))
+        cum = torch.cumsum(tau_fin, dim=1)
+        f_ub = cum[:, torch.arange(1, max(1, kp // k), device=dev) * k - 1]
+        jb = torch.sum(f_ub <= tb["chi"][:, None], dim=1)
+        jb = torch.minimum(jb, torch.clamp(torch.div(count - 1, k, rounding_mode="floor"), min=0))
+        b_t = torch.gather(entry, 1, torch.clamp(jb * k, max=kp - 1)[:, None])[:, 0]
+        b_t = torch.where((jb > 0) & torch.isfinite(b_t), b_t, 0.0)
+        b_t = torch.clamp(torch.minimum(b_t, torch.minimum(tb["t_cap"], tb["t_budget"])), min=0.0)
+        tb["chi"] = torch.clamp(tb["chi"] - _depths(tb, b_t).sum(1), min=0.0)
+        tb["t_min0"] = b_t
+    if v.get("long_open"):
+        exit_t = tb["exit_t"].clone()
+        last = torch.amax(torch.where(torch.isfinite(exit_t), exit_t, -torch.inf), 1)
+        cols = torch.arange(0, min(64, kp), 37, device=dev)
+        stretch = torch.isfinite(entry[:, cols]) & torch.isfinite(last)[:, None]
+        exit_t[:, cols] = torch.where(stretch, last[:, None], exit_t[:, cols])
+        tb["exit_t"] = exit_t
+    kw = dict(k=k, n_windows=v["n_windows"], solver_disabled=v.get("solver_disabled", False))
     return tb, kw
