@@ -4,8 +4,9 @@
 
 Drives volprim_tpu_torch's render path (synthetic 262,144-primitive surface
 scene -> build_state -> render_state, 512x512 film, 2 spp, the headline
-configuration of bench.py) and its training step (the same scene, 1 spp,
-bench.py's train configuration, L1 loss, backward, BoundedAdam), and checks
+configuration of bench.py), its training step (the same scene, 1 spp,
+bench.py's train configuration, L1 loss, backward, BoundedAdam) and the
+3DGS-asset path (PLY, cameras.json, the two example CLIs), and checks
 the hand-written CUDA compositor kernels on the way, in phases that each
 print one line:
 
@@ -133,8 +134,50 @@ compositors:
     plain versions as in phase 19 (the backward's KILL_FLIP ray, whose
     weight lies on log(beta_kill), is excused and counted: kill_flips).
 
-Then a JSON line with each kernel's numbers, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
+Then the 3DGS-asset path (the PLY and cameras.json the port writes itself,
+rf_tiled's xla backend, emitters, the Epanechnikov kernel and the two
+example CLIs), on the headline scene at full width:
+
+21. asset_io: save_ply of the scene (under build/chip_smoke_asset), then
+    load_ply through the native parser and through numpy: bit-equal to
+    each other and within JAX's round-trip tolerances of the scene; the
+    headline camera and 7 orbit cameras through JSONCameraSpecsIO; the
+    seconds of each step;
+22. xla_frame: the V12 frame through backend="xla" (plain PyTorch): median
+    of 10, peak memory, PSNR against phase 5's exact subsample (>= 20 dB);
+    the same frame through the v1 kernel within rtol 1e-3 / atol 2e-3
+    (JAX's test_pallas_backend_matches_xla), or else, where q = c - b^2/a
+    cancels, both held to the v1 plain version in f64 on the same
+    shortlists (RMS within 2x, largest within 4x of the v1 kernel's
+    deviation); the Epanechnikov
+    frame against the exact integrator's Epanechnikov subsample (>= 20
+    dB); order_band 16 at 4096 candidates not below the same frame
+    unbanded;
+23. xla_train_step: the train step with V12's knobs through the xla route:
+    finite nonzero gradients of all five parameters, step time and peak
+    memory, each gradient within 2e-3 of its maximum of the v1 kernel's,
+    or else held to the yardstick of phase 22: opacities and SH by its
+    rule, centers, scales and quats (whose plain-autograd sums cancel in
+    f32) by their projection on the f64 gradient (within 0.3 of 1) and
+    an RMS deviation within 20x the v1 kernel's; then the Epanechnikov
+    step;
+24. emitter: the headline fused frame and the xla frame (srgb_primitives
+    off, 1 spp, pixel centers) with and without ConstantEmitter(ones):
+    their difference equals, pixel by pixel, the beta the compositor
+    returned for that pixel's ray (placed by its direction) within 1e-6;
+25. cli: render_3dg_asset and refine_3dg_dataset in subprocesses on phase
+    21's files: the tiled Gaussian render (fused kernel; its EXR equal to
+    an in-process render of the same configuration, whose forward launches
+    are counted and replayed against the plain version), the exact
+    Epanechnikov render with a white background, and the refine through
+    the xla route (Epanechnikov) and the fused kernels (Gaussian, whose
+    in-process step's forward and backward launches are replayed) against
+    references rendered in-process from the unperturbed scene, starting
+    from phase 8's perturbed opacities and SH: the losses must fall and
+    the refined asset load back whole; each CLI's wall time.
+
+Then the total seconds, a JSON line with each kernel's numbers, the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero. There is no CPU mode: without a CUDA card it exits with an
 error. ``--out DIR`` also writes the details and torch.profiler tables of
 two tiled frames, two train steps and two path-traced frames there.
@@ -1680,6 +1723,596 @@ def replay_train_step(composite3, camera, dev, details, name, quat_norm=None,
     return dict(res, fwd=f_row)
 
 
+
+# ---- the 3DGS-asset path (phases 21-25) ------------------------------------
+
+# where phases 21 and 25 write their PLY, cameras, images and assets (under
+# build/, which .gitignore lists)
+ASSET_DIR = os.path.join("build", "chip_smoke_asset")
+# JAX's PLY round-trip tolerances (tests/test_scene_io.py:41-65)
+PLY_RTOL = dict(centers=(1e-5, 0.0), scales=(1e-5, 0.0), quats=(1e-5, 1e-6),
+                opacities=(1e-4, 1e-5), sh_coeffs=(1e-4, 1e-5))
+# the xla route against the v1 kernel (JAX's test_pallas_backend_matches_xla
+# and test_pallas_gradients_match_xla)
+XLA_V1_RTOL, XLA_V1_ATOL, XLA_V1_GRAD = 1e-3, 2e-3, 2e-3
+# the gradients the f64 rule gates in phase 23: those that reach the
+# primitives without the quadric feature rows, whose plain-autograd sums
+# cancel in f32 at the headline scales in JAX's xla route as in the port's
+XLA_GATED = ("opacities", "sh_coeffs")
+# the other three (centers, scales, quats) are gated on their projection
+# on the f64 gradient, <g, g64> / <g64, g64>, within XLA_PROJ_TOL of 1:
+# f32 noise leaves it near 1 (JAX's xla route at the headline scales,
+# 64x64: 0.82 / 0.95 / 0.93, tests/test_torch_xla_headline.py; the port's
+# on the card at 512x512: 0.96 / 1.06 / 0.98), a zero, shrunk, scaled or
+# sign-flipped gradient does not; and on an RMS deviation from f64 at most
+# XLA_RMS_OVER_V1 times the v1 kernel's (on the card 1.5x / 10.1x / 5.0x),
+# which added noise of the gradient's own size does not meet
+XLA_PROJ_TOL, XLA_RMS_OVER_V1 = 0.3, 20.0
+# the refine CLI's steps and the refs' samples (phase 8's protocol)
+CLI_STEPS, CLI_REF_SPP = 8, 4
+
+
+def scene_arrays(scene) -> dict:
+    return dict(centers=scene.centers, scales=scene.scales, quats=scene.quats,
+                **scene.attrs)
+
+
+def f32_cull(state):
+    """An f64 state with its cull geometry in f32, which the cull takes:
+    the f64 yardstick of a frame selects the f32 frame's shortlists."""
+    return dataclasses.replace(state, **{k: getattr(state, k).float() for k in (
+        "cull_centers", "cull_radii", "sup_centers", "sup_radii", "suprows")})
+
+
+class _V1Plain64(torch.autograd.Function):
+    """The v1 compositor's plain versions in f64, TILE_CHUNK tiles at a
+    time (composite_tiles_reference forward, composite_tiles_bwd_reference
+    backward): the yardstick of the xla route in phases 22-23, code apart
+    from the route it measures."""
+
+    @staticmethod
+    def forward(ctx, fa, fb, fc, basis, pf, opac, sh3, seg, extent2, max_depth, beta_kill):
+        from volprim_tpu_torch.kernels import composite
+
+        x = tuple(v.double() for v in (fa, fb, fc, basis, pf, opac, sh3))
+        kw = dict(seg=seg, extent2=extent2, max_depth=max_depth, beta_kill=beta_kill)
+        parts = [composite.composite_tiles_reference(*(v[i:i + TILE_CHUNK] for v in x), **kw)
+                 for i in range(0, x[0].shape[0], TILE_CHUNK)]
+        ctx.save_for_backward(*x)
+        ctx.kw = kw
+        ctx.dtypes = (pf.dtype, opac.dtype, sh3.dtype)
+        return torch.cat([q[0] for q in parts]), torch.cat([q[1] for q in parts])
+
+    @staticmethod
+    def backward(ctx, g_l, g_beta):
+        from volprim_tpu_torch.kernels import composite_vjp
+
+        x = ctx.saved_tensors
+        parts = [composite_vjp.composite_tiles_bwd_reference(
+            *(v[i:i + TILE_CHUNK] for v in x), g_l[i:i + TILE_CHUNK].double(),
+            g_beta[i:i + TILE_CHUNK].double(), **ctx.kw)
+            for i in range(0, x[0].shape[0], TILE_CHUNK)]
+        grads = [torch.cat([q[j] for q in parts]).to(dt) for j, dt in enumerate(ctx.dtypes)]
+        return (None,) * 4 + tuple(grads) + (None,) * 4
+
+
+def _v1_plain64(fa, fb, fc, basis, pf, opac, sh3, seg=256, extent2=9.0, max_depth=128,
+                beta_kill=0.01):
+    """:class:`_V1Plain64` with ``composite_vjp.composite_tiles_ad``'s signature."""
+    return _V1Plain64.apply(fa, fb, fc, basis, pf, opac, sh3, seg, extent2, max_depth,
+                            beta_kill)
+
+
+def v1_plain64_frame(rf_tiled, scene, camera, cfg, seed, spp=SPP, params=None, jitter=True):
+    """``render_state`` of ``scene`` in f64 (its cull geometry in f32: the
+    f32 frames' shortlists) through backend='pallas' with the v1 kernel's
+    wrapper replaced by :class:`_V1Plain64`: the f64 yardstick of the xla
+    route and of the v1 kernel. With ``params`` (f64 leaves of the five
+    trained arrays) the frame is differentiable in them."""
+    from volprim_tpu_torch.kernels import composite_vjp
+    from volprim_tpu_torch.ops import quadric, sh
+
+    p = params or {}
+    s64 = dataclasses.replace(
+        scene, **{k: p.get(k, getattr(scene, k)).double() for k in ("centers", "scales", "quats")},
+        attrs={k: p.get(k, v).double() for k, v in scene.attrs.items()})
+    cfg = dataclasses.replace(cfg, backend="pallas")
+    # the ray features and SH basis of the (f32) rays formed in f64, as the
+    # xla route forms them from f64 rays: q cancels their f32 rounding too
+    orig = composite_vjp.composite_tiles_ad, quadric.ray_features, sh.eval_basis
+    composite_vjp.composite_tiles_ad = _v1_plain64
+    quadric.ray_features = lambda o, d: orig[1](o.double(), d.double())
+    sh.eval_basis = lambda d, degree: orig[2](d.double(), degree)
+    try:
+        return rf_tiled.render_state(f32_cull(rf_tiled.build_state(s64, cfg)), camera, cfg,
+                                     None, spp=spp, seed=seed, jitter=jitter)
+    finally:
+        composite_vjp.composite_tiles_ad, quadric.ray_features, sh.eval_basis = orig
+
+
+def grad_stats(g, y) -> dict:
+    """A gradient ``g`` against its f64 yardstick ``y``: largest and RMS
+    deviation over y's largest magnitude, and the projection of g on y."""
+    scale = y.abs().max()
+    d = (g - y).abs() / scale
+    return dict(max=float(d.max()), rms=float(d.square().mean().sqrt()),
+                proj=float((g * y).sum() / (y * y).sum()))
+
+
+def asset_io(scene, details) -> dict:
+    """Phase 21: save_ply of the headline scene, load_ply through the
+    native parser and through numpy (bit-equal to each other and within
+    JAX's round-trip tolerances of the scene), and JSONCameraSpecsIO
+    write / load of the headline camera and 7 orbit cameras."""
+    from volprim_tpu_torch import native
+    from volprim_tpu_torch.scene import JSONCameraSpecsIO, load_ply, save_ply, synthetic
+
+    os.makedirs(ASSET_DIR, exist_ok=True)
+    ply_path = os.path.join(ASSET_DIR, "headline.ply")
+    cam_path = os.path.join(ASSET_DIR, "cameras.json")
+    secs = {}
+    t0 = time.perf_counter()
+    save_ply(scene, ply_path)
+    secs["save_ply"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if native.get() is None:
+        fail("the native PLY parser did not build")
+    secs["native_build"] = time.perf_counter() - t0
+    loaded = {}
+    for tag, use_native in (("native", True), ("numpy", False)):
+        t0 = time.perf_counter()
+        loaded[tag] = load_ply(ply_path, device=scene.device, use_native=use_native)
+        torch.cuda.synchronize()
+        secs[f"load_ply_{tag}"] = time.perf_counter() - t0
+    a, b, want = (scene_arrays(s) for s in (loaded["native"], loaded["numpy"], scene))
+    if sorted(a) != sorted(want) or sorted(b) != sorted(want):
+        fail(f"load_ply read {sorted(a)} / {sorted(b)}, expected {sorted(want)}")
+    bit_equal = all(torch.equal(a[k], b[k]) for k in want)
+    err = {}
+    for k, (rtol, atol) in PLY_RTOL.items():
+        e = (a[k] - want[k]).abs() - rtol * want[k].abs()
+        err[k] = float(e.max())
+        if err[k] > atol:
+            fail(f"the PLY round trip moved {k} by more than rtol {rtol} / atol {atol}")
+    cams = synthetic.orbit_cameras(WIDTH, 8)
+    t0 = time.perf_counter()
+    JSONCameraSpecsIO.write(cams, cam_path)
+    back = JSONCameraSpecsIO.load(cam_path)
+    secs["cameras_json"] = time.perf_counter() - t0
+    cam_err = max(float(np.abs(c.to_world - d.to_world).max()) for c, d in zip(cams, back))
+    same = [(c.name, c.width, c.height) == (d.name, d.width, d.height)
+            and abs(c.focal_length - d.focal_length) < 1e-9 for c, d in zip(cams, back)]
+    res = dict(prims=scene.num_prims, ply_bytes=os.path.getsize(ply_path),
+               native_equals_numpy=bit_equal, roundtrip_excess=err, cameras=len(back),
+               camera_to_world_max_err=cam_err, seconds={k: round(v, 3) for k, v in secs.items()})
+    phase("asset_io", **res)
+    details["asset_io"] = res
+    if not bit_equal:
+        fail("the native and the numpy PLY parsers disagree")
+    if len(back) != 8 or not all(same) or cam_err > 1e-12:
+        fail("the cameras.json round trip changed a camera")
+    return dict(ply=ply_path, cameras=cam_path)
+
+
+def launch_rays(route, args, out):
+    """(directions [T, R, 3], beta [T, R]) of one compositor call: the
+    fused route's (composite3's wrapper or launch) rays are rows 0-2 of
+    its first argument d8 [T, 8, R]; the xla route's
+    (``_composite_tiles_xla``) d [T, RT, 3] is its second."""
+    d = args[0][:, :3].transpose(1, 2) if route == "fused" else args[1]
+    return d.detach(), out[1].detach()
+
+
+def beta_image(camera, rays):
+    """The betas the compositors returned, placed on the film by their
+    rays' directions: ``rays`` is a list of (d [..., 3], beta [...]) of
+    pixel-center rays; each direction is projected back through the
+    camera (in f64) to its pixel. Returns (beta [H, W], rays per pixel
+    [H, W]), independent of the renderer's tile order."""
+    h, w = camera.height, camera.width
+    d = torch.cat([x.reshape(-1, 3) for x, _ in rays]).double()
+    beta = torch.cat([b.reshape(-1) for _, b in rays]).double()
+    rot = torch.as_tensor(camera.to_world[:3, :3], dtype=torch.float64, device=d.device)
+    v = d @ rot  # the camera-frame direction, R^T d
+    px = (w / 2.0 - camera.cx) - camera.focal_length * v[:, 0] / v[:, 2]
+    py = (h / 2.0 - camera.cy) - camera.focal_length * v[:, 1] / v[:, 2]
+    ix, iy = torch.floor(px).long(), torch.floor(py).long()
+    if bool(((ix < 0) | (ix >= w) | (iy < 0) | (iy >= h)).any()):
+        fail("emitter: a compositor ray points off the film")
+    flat = iy * w + ix
+    img = torch.zeros(h * w, dtype=torch.float64, device=d.device).index_put_(
+        (flat,), beta, accumulate=True)
+    count = torch.zeros(h * w, dtype=torch.int64, device=d.device).index_put_(
+        (flat,), torch.ones_like(flat), accumulate=True)
+    return img.reshape(h, w), count.reshape(h, w)
+
+
+def xla_frame(rf_tiled, rf, scene, camera, exact, sel, o_sel, d_sel, details, out=None) -> dict:
+    """Phase 22: the V12 frame through backend='xla' (plain PyTorch):
+    median of 10 frames, peak memory, PSNR against phase 5's exact
+    subsample; the same frame through the v1 kernel within JAX's
+    backend tolerance (else both held to the v1 plain version in f64 on
+    the same shortlists, :func:`v1_plain64_frame`: the xla frame's RMS
+    deviation within 2x, its largest within 4x the v1 kernel's);
+    the Epanechnikov frame against the exact integrator's Epanechnikov
+    subsample; order_band 16 at 4096 candidates against the same frame
+    unbanded."""
+    t_phase = time.perf_counter()
+    cfg = rf_tiled.RFTiledConfig(backend="xla", **V12)
+    state = rf_tiled.build_state(scene, cfg)
+
+    def frame(st, c, seed, spp=SPP, jitter=True):
+        return rf_tiled.render_state(st, camera, c, None, spp=spp, seed=seed, jitter=jitter)
+
+    img = frame(state, cfg, 1)
+    if tuple(img.shape) != (WIDTH, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+        fail(f"xla frame: not a finite [{WIDTH}, {WIDTH}, 3] image")
+    torch.cuda.reset_peak_memory_stats()
+    seeds = iter(range(100, 200))
+    times = cuda_times(lambda: frame(state, cfg, next(seeds)), 10)
+    frame_ms = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img1 = frame(state, cfg, 0, 1, False)
+    psnr = psnr_db(img1.reshape(-1, 3)[sel], exact)
+    # the step size is a memory knob: 8 tiles a step give the same image
+    pairs = rf_tiled._GROUP_PAIRS
+    rf_tiled._GROUP_PAIRS = 0
+    try:
+        img8 = frame(state, dataclasses.replace(cfg, tile_group=8), 0, 1, False)
+    finally:
+        rf_tiled._GROUP_PAIRS = pairs
+    group_err = float((img8 - img1).abs().max())
+    del img8
+    # early_exit: one host read a segment and step, to stop spent tiles
+    cfg_ee = dataclasses.replace(cfg, early_exit=True)
+    early_exit_ms = cuda_ms(lambda: frame(state, cfg_ee, next(seeds)), 3, warmup=1)
+    busy = split = None
+    if out:
+        busy, split = device_profile(
+            lambda i: frame(state, cfg, 300 + i), out, "chip_smoke_xla_profile.txt",
+            stages={rf_tiled: ("_render_tiles", "_render_shortlist", "_composite_tiles_xla")})
+    # the v1 kernel on the same shortlist, offsets and features
+    cfg_v1 = rf_tiled.RFTiledConfig(backend="pallas", **V12)
+    img_v1 = frame(rf_tiled.build_state(scene, cfg_v1), cfg_v1, 1)
+    diff = (img - img_v1).abs()
+    out_tol = int((diff > XLA_V1_ATOL + XLA_V1_RTOL * img_v1.abs()).sum())
+    v1 = dict(max_abs=float(diff.max()), elements_outside_tol=out_tol)
+    if out_tol:  # the q cancellation: both against the v1 plain version in f64
+        with torch.no_grad():
+            yard = v1_plain64_frame(rf_tiled, scene, camera, cfg_v1, 1)
+        dx, dv = (img - yard).abs(), (img_v1 - yard).abs()
+        v1.update(xla_vs_f64_max=float(dx.max()), v1_vs_f64_max=float(dv.max()),
+                  xla_vs_f64_rms=float(dx.square().mean().sqrt()),
+                  v1_vs_f64_rms=float(dv.square().mean().sqrt()))
+        v1["ok"] = (v1["xla_vs_f64_rms"] <= 2.0 * v1["v1_vs_f64_rms"]
+                    and v1["xla_vs_f64_max"] <= 4.0 * v1["v1_vs_f64_max"])
+        del yard
+    else:
+        v1["ok"] = True
+    del img_v1
+    # the Epanechnikov kernel against the exact integrator's
+    cfg_e = dataclasses.replace(cfg, kernel_type="epanechnikov")
+    st_e = rf_tiled.build_state(scene, cfg_e)
+    img_e = frame(st_e, cfg_e, 0, 1, False)
+    exact_e = rf.radiance(scene, None, o_sel, d_sel, rf.RFConfig(
+        max_depth=128, kernel_type="epanechnikov", chunk_size=2048))
+    psnr_e = psnr_db(img_e.reshape(-1, 3)[sel], exact_e)
+    times_e = cuda_times(lambda: frame(st_e, cfg_e, next(seeds)), 3, warmup=1)
+    del st_e
+    # order_band 16 at 4096 candidates, beside the same frame unbanded
+    psnr_b = {}
+    for band in (16, 0):
+        c = rf_tiled.RFTiledConfig(backend="xla", **dict(V12, max_candidates=4096,
+                                                          order_band=band))
+        st = rf_tiled.build_state(scene, c)
+        psnr_b[band] = psnr_db(frame(st, c, 0, 1, False).reshape(-1, 3)[sel], exact)
+        if band:
+            band_ms = cuda_ms(lambda: frame(st, c, next(seeds)), 3, warmup=1)
+        del st
+    res = dict(
+        frame_ms=frame_ms, frame_ms_min=times[0], frame_ms_max=times[-1],
+        mrays_per_s=WIDTH * WIDTH * SPP / (frame_ms / 1e3) / 1e6, peak_mem_gib=peak,
+        mean_radiance=float(img.mean()), psnr_vs_exact_db=psnr, vs_v1=v1,
+        tile_group_8_max_abs_diff=group_err, early_exit_frame_ms=early_exit_ms,
+        device_busy_ms=busy, device_idle_share=None if busy is None else 1.0 - busy / frame_ms,
+        device_ms_by_stage=split, epanechnikov_frame_ms=float(np.median(times_e)),
+        epanechnikov_psnr_vs_exact_db=psnr_e, band16_mc4096_psnr_vs_exact_db=psnr_b[16],
+        band0_mc4096_psnr_vs_exact_db=psnr_b[0], band16_mc4096_frame_ms=band_ms,
+        seconds=round(time.perf_counter() - t_phase, 2),
+    )
+    phase("xla_frame", **res)
+    details["xla_frame"] = dict(res, times=times)
+    if not psnr > 20.0:
+        fail(f"xla frame: PSNR vs exact {psnr:.2f} dB")
+    if group_err > 1e-6:
+        fail(f"xla frame: 8 tiles a step changed the image by {group_err}")
+    if not v1["ok"]:
+        fail(f"xla frame: the xla route and the v1 kernel disagree: {v1}")
+    if not psnr_e > 20.0:
+        fail(f"xla frame: Epanechnikov PSNR vs exact {psnr_e:.2f} dB")
+    if not psnr_b[16] >= psnr_b[0]:
+        fail(f"xla frame: order_band 16 lowered the PSNR vs exact: {psnr_b}")
+    return res
+
+
+def xla_train_step(rf_tiled, camera, dev, details) -> dict:
+    """Phase 23: the TRAIN step with V12's knobs through backend='xla'
+    (1 spp, L1 against a zero image): finite nonzero gradients of all five
+    parameters, step time and peak memory, and each gradient against the
+    v1 kernel's in the same step, within XLA_V1_GRAD of its maximum or
+    else both held to the v1 plain version in f64 on the same shortlists
+    (:func:`v1_plain64_frame`): XLA_GATED with an RMS deviation within 2x
+    and a largest within 4x the v1 kernel's; centers, scales and quats,
+    whose plain-autograd rows cancel in f32 in JAX's xla route too
+    (tests/test_torch_xla_headline.py), with a projection on the f64
+    gradient within XLA_PROJ_TOL of 1 and an RMS deviation within
+    XLA_RMS_OVER_V1 times the v1 kernel's; then the Epanechnikov step."""
+    from volprim_tpu_torch import interop
+    from volprim_tpu_torch.scene import synthetic
+
+    t_phase = time.perf_counter()
+    base = synthetic.make_scene(N_PRIMS, device=dev)
+
+    def grads(backend, kernel="gaussian", reps=0, yard=False):
+        cfg = rf_tiled.RFTiledConfig(backend=backend, kernel_type=kernel, **V12)
+        src = scene_arrays(base)
+        dtype = torch.float64 if yard else torch.float32
+        params = {k: src[k].to(dtype).clone().requires_grad_(True) for k in interop.TRAIN_KEYS}
+
+        def step(seed):
+            for p in params.values():
+                p.grad = None
+            if yard:
+                img = v1_plain64_frame(rf_tiled, base, camera, cfg, seed, spp=1, params=params)
+            else:
+                state = rf_tiled.build_state(dataclasses.replace(
+                    base, centers=params["centers"], scales=params["scales"],
+                    quats=params["quats"],
+                    attrs={k: params[k] for k in ("opacities", "sh_coeffs")}), cfg)
+                img = rf_tiled.render_state(state, camera, cfg, None, spp=1, seed=seed)
+            loss = torch.mean(torch.abs(img))
+            loss.backward()
+            return loss.detach()
+
+        loss = step(0)
+        g = {k: params[k].grad.double() for k in interop.TRAIN_KEYS}
+        row = dict(loss=float(loss))
+        if reps:
+            torch.cuda.reset_peak_memory_stats()
+            seeds = iter(range(1, 100))
+            t = cuda_times(lambda: step(next(seeds)), reps, warmup=1)
+            row.update(step_ms=float(np.median(t)), step_ms_min=t[0], step_ms_max=t[-1],
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        for k, v in g.items():
+            if not bool(torch.isfinite(v).all()) or not bool(v.abs().max() > 0):
+                fail(f"xla train step ({backend}, {kernel}): the gradient of {k} is not "
+                     "finite or all zero")
+        return g, row
+
+    g_x, row_x = grads("xla", reps=5)
+    g_1, _ = grads("pallas")
+    rel = {k: float((g_x[k] - g_1[k]).abs().max() / g_1[k].abs().max()) for k in g_x}
+    cmp_ = dict(max_rel_to_v1=rel, ok=max(rel.values()) <= XLA_V1_GRAD)
+    if not cmp_["ok"]:  # q = c - b^2/a cancels: both against the v1 plain version in f64
+        t0 = time.perf_counter()
+        g_64, _ = grads("pallas", yard=True)
+        cmp_["yard_s"] = round(time.perf_counter() - t0, 2)
+        for k in g_x:
+            cmp_[k] = dict(xla=grad_stats(g_x[k], g_64[k]), v1=grad_stats(g_1[k], g_64[k]))
+        cmp_["ok"] = all(
+            cmp_[k]["xla"]["rms"] <= 2.0 * cmp_[k]["v1"]["rms"]
+            and cmp_[k]["xla"]["max"] <= 4.0 * cmp_[k]["v1"]["max"] if k in XLA_GATED
+            else abs(cmp_[k]["xla"]["proj"] - 1.0) <= XLA_PROJ_TOL
+            and cmp_[k]["xla"]["rms"] <= XLA_RMS_OVER_V1 * cmp_[k]["v1"]["rms"] for k in g_x)
+        del g_64
+    del g_1
+    _, row_e = grads("xla", kernel="epanechnikov", reps=3)
+    res = dict(gaussian=row_x, vs_v1=cmp_, epanechnikov=row_e,
+               grad_max_abs={k: float(v.abs().max()) for k, v in g_x.items()},
+               seconds=round(time.perf_counter() - t_phase, 2))
+    phase("xla_train_step", **res)
+    details["xla_train_step"] = res
+    if not cmp_["ok"]:
+        fail(f"xla train step: the gradients disagree with the v1 kernel's: {cmp_}")
+    return res
+
+
+def emitter_check(composite3, rf_tiled, scene, camera, details) -> dict:
+    """Phase 24: the headline fused frame (1 spp, pixel centers,
+    srgb_primitives=False) with and without ConstantEmitter(ones): their
+    difference, pixel by pixel, is the beta the compositor returned for
+    that pixel's ray, within 1e-6 (each launch's rays placed on the film
+    by their directions, :func:`beta_image`; every pixel takes one ray);
+    the same on the xla route."""
+    from volprim_tpu_torch.ops.envmap import ConstantEmitter
+
+    emitter = ConstantEmitter(radiance=torch.ones(3, device=scene.device))
+    res = {}
+    for route, cfg in (("fused", rf_tiled.RFTiledConfig(**dict(HEADLINE, srgb_primitives=False))),
+                       ("xla", rf_tiled.RFTiledConfig(backend="xla",
+                                                      **dict(V12, srgb_primitives=False)))):
+        state = rf_tiled.build_state(scene, cfg)
+        module, name = ((composite3, "_launch") if route == "fused"
+                        else (rf_tiled, "_composite_tiles_xla"))
+        orig, rays = getattr(module, name), []
+
+        def recording(*a, **kw):
+            out = orig(*a, **kw)
+            rays.append(launch_rays(route, a, out))
+            return out
+
+        setattr(module, name, recording)
+        try:
+            with_em = rf_tiled.render_state(state, camera, cfg, emitter, spp=1, jitter=False)
+        finally:
+            setattr(module, name, orig)
+        without = rf_tiled.render_state(state, camera, cfg, None, spp=1, jitter=False)
+        beta, count = beta_image(camera, rays)
+        diff = (with_em - without).double()
+        err = float((diff - beta[..., None]).abs().max())
+        res[route] = dict(launches=len(rays), max_abs_err=err,
+                          pixels_not_one_ray=int((count != 1).sum()),
+                          mean_beta=float(beta.mean()))
+        del state
+    phase("emitter", **res)
+    details["emitter"] = res
+    for route, r_ in res.items():
+        if r_["pixels_not_one_ray"]:
+            fail(f"emitter ({route}): {r_['pixels_not_one_ray']} pixels took no ray or several")
+        if not r_["max_abs_err"] <= 1e-6:
+            fail(f"emitter ({route}): image difference and beta differ by {r_['max_abs_err']}")
+    return res
+
+
+def _run_cli(module, argv, timeout=600):
+    """``python -m volprim_tpu_torch.examples.<module> argv``: (wall s, stdout)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"volprim_tpu_torch.examples.{module}", *argv],
+                          capture_output=True, text=True, timeout=timeout,
+                          env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"{module} {' '.join(argv)} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    return wall, proc.stdout
+
+
+def cli_phase(composite3, rf_tiled, paths, scene, dev, details) -> dict:
+    """Phase 25: the port's two CLIs in subprocesses on phase 21's PLY and
+    cameras. Before each fused run its tiled configuration runs in-process
+    (counts set to 0 just before, read just after) and its compositor
+    launches are replayed against the plain versions."""
+    from volprim_tpu_torch import train
+    from volprim_tpu_torch.examples import refine_3dg_dataset as refine
+    from volprim_tpu_torch.examples import render_3dg_asset as render_cli
+    from volprim_tpu_torch.scene import JSONCameraSpecsIO, load_asset, load_ply, save_ply
+    from volprim_tpu_torch.utils.image import read_exr
+
+    t_phase = time.perf_counter()
+    ply, cams = paths["ply"], paths["cameras"]
+    camera = JSONCameraSpecsIO.load(cams)[0]
+    res = {}
+    # render, Gaussian, tiled: the fused kernel, in-process on the scene as
+    # the CLI reads it, then the CLI
+    tcfg = render_cli.tiled_config(camera, 128, "gaussian")
+    state = rf_tiled.build_state(load_ply(ply, device=dev), tcfg)
+    with torch.no_grad():
+        img, launches, recorded = record_launches(
+            composite3, "_launch", composite3.composite_tiles3,
+            lambda: rf_tiled.render_state(state, camera, tcfg, None, spp=2, seed=0))
+    rows = [check_fwd3(composite3, a) for a in recorded]
+    bound = sum(work(composite3, *a[:4], a[4], a[5], a[6], a[8], a[9], a[10])["fwd_bound_ms"]
+                for a in recorded)
+    del state, recorded
+    out_dir = os.path.join(ASSET_DIR, "render_tiled")
+    wall, _ = _run_cli("render_3dg_asset", ["--ply", ply, "--cameras", cams, "--output",
+                                            out_dir, "--renderer", "tiled", "--spp", "2"])
+    exr = torch.from_numpy(read_exr(os.path.join(out_dir, "output.exr"))).to(dev)
+    res["render_tiled"] = dict(wall_s=wall, launches=launches,
+                               exr_vs_in_process=float((exr - img).abs().max()),
+                               fwd_max_abs_err=max(r_[x]["max_abs"] for r_ in rows
+                                                   for x in ("L", "beta")),
+                               fwd_ms=sum(r_["ms"] for r_ in rows),
+                               fwd_plain_ms=sum(r_["plain_ms"] for r_ in rows),
+                               fwd_bound_ms=bound)
+    if not launches or not all(r_["ok"] for r_ in rows):
+        fail(f"cli: the render CLI's fused configuration launched {launches} times or a "
+             "launch disagrees with the plain version")
+    if res["render_tiled"]["exr_vs_in_process"] > 1e-6:
+        fail("cli: the render CLI's EXR differs from the in-process render")
+    del img, exr
+    # render, Epanechnikov, exact, white background
+    out_dir = os.path.join(ASSET_DIR, "render_exact")
+    wall, _ = _run_cli("render_3dg_asset", [
+        "--ply", ply, "--cameras", cams, "--output", out_dir, "--renderer", "exact",
+        "--kernel", "epanechnikov", "--white_background", "--cam_scale", "0.125"])
+    exr = read_exr(os.path.join(out_dir, "output.exr"))
+    res["render_exact_epanechnikov"] = dict(wall_s=wall, shape=list(exr.shape),
+                                            mean=float(exr.mean()))
+    if exr.shape != (WIDTH // 8, WIDTH // 8, 3) or not np.isfinite(exr).all():
+        fail("cli: the exact Epanechnikov render is not a finite image of the scaled camera")
+    # refine: phase 8's perturbed start against references of the scene
+    rng = np.random.default_rng(8)
+    start = dataclasses.replace(scene, attrs=dict(
+        scene.attrs, opacities=scene.attrs["opacities"] * 0.5,
+        sh_coeffs=scene.attrs["sh_coeffs"] + torch.from_numpy(
+            rng.normal(0.0, 0.05, tuple(scene.attrs["sh_coeffs"].shape)).astype(np.float32)
+        ).to(dev)))
+    start_ply = os.path.join(ASSET_DIR, "perturbed.ply")
+    save_ply(start, start_ply)
+    cameras = refine.select_cameras(JSONCameraSpecsIO.load(cams), 8, 0.125)
+    for kernel in ("epanechnikov", "gaussian"):
+        rcfg = refine.tiled_config(cameras[0], 128, kernel)
+        ref_dir = os.path.join(ASSET_DIR, f"refs_{kernel}")
+        os.makedirs(ref_dir, exist_ok=True)
+        with torch.no_grad():
+            ref = train.render_cameras(scene, cameras, rcfg, spp=CLI_REF_SPP, seed=999)
+        w = cameras[0].width
+        for i, c in enumerate(cameras):
+            np.save(os.path.join(ref_dir, f"{c.name}.npy"),
+                    ref[:, i * w:(i + 1) * w].cpu().numpy())
+        row = {}
+        if kernel == "gaussian":  # the step in-process: both kernels replayed
+            params = {k: v.clone().requires_grad_(True) for k, v in (
+                ("opacities", start.attrs["opacities"]), ("sh_coeffs", start.attrs["sh_coeffs"]),
+                ("centers", start.centers))}
+
+            def step():
+                img_ = train.render_cameras(train.to_scene(params, start), cameras, rcfg,
+                                            spp=1, seed=0)
+                torch.mean(torch.abs(ref - img_)).backward()
+
+            (_, n_bwd, rec_b), n_fwd, rec_f = record_launches(
+                composite3, "_launch", composite3.composite_tiles3,
+                lambda: record_launches(composite3, "_launch_bwd",
+                                        composite3.composite_tiles3_bwd, step))
+            f_rows = [check_fwd3(composite3, a) for a in rec_f]
+            b_rows = []
+            for a in rec_b:
+                d8, pf, sh3, n_seg_t, g_l, g_beta, seg, e2, md, bk, shk, compact, band = a
+                w = work(composite3, d8, pf, sh3, n_seg_t, seg, e2, md, shk, compact, band)
+                cmp_, ms, plain_ms = check_bwd(composite3, (d8, pf, sh3, n_seg_t, g_l, g_beta),
+                                               dict(seg=seg, extent2=e2, max_depth=md,
+                                                    beta_kill=bk, sh_k=shk, order_band=band),
+                                               compact)
+                b_rows.append(dict(ok=cmp_["ok"], ms=ms, plain_ms=plain_ms,
+                                   max_abs=max(cmp_[x]["max_abs"] for x in ("gpf", "gsh")),
+                                   fwd_bound_ms=w["fwd_bound_ms"],
+                                   bwd_bound_ms=w["bwd_bound_ms"]))
+            del rec_f, rec_b, params
+            row.update(launches_fwd=n_fwd, launches_bwd=n_bwd,
+                       fwd_ms=sum(r_["ms"] for r_ in f_rows),
+                       fwd_plain_ms=sum(r_["plain_ms"] for r_ in f_rows),
+                       fwd_max_abs_err=max(r_[x]["max_abs"] for r_ in f_rows
+                                           for x in ("L", "beta")),
+                       fwd_bound_ms=sum(r_["fwd_bound_ms"] for r_ in b_rows),
+                       bwd_ms=sum(r_["ms"] for r_ in b_rows),
+                       bwd_plain_ms=sum(r_["plain_ms"] for r_ in b_rows),
+                       bwd_bound_ms=sum(r_["bwd_bound_ms"] for r_ in b_rows),
+                       bwd_max_abs_err=max(r_["max_abs"] for r_ in b_rows))
+            if not (n_fwd and n_bwd) or not all(r_["ok"] for r_ in f_rows + b_rows):
+                fail(f"cli: the refine CLI's step launched (forward, backward) "
+                     f"{(n_fwd, n_bwd)} times or a launch disagrees with its plain version")
+        out_dir = os.path.join(ASSET_DIR, f"refine_{kernel}")
+        wall, stdout = _run_cli("refine_3dg_dataset", [
+            "--ply", start_ply, "--cameras", cams, "--images", ref_dir, "--output", out_dir,
+            "--renderer", "tiled", "--kernel", kernel, "--cam_count", "8",
+            "--iterations", str(CLI_STEPS), "--ref_spp", str(CLI_REF_SPP)])
+        losses = [float(m) for m in re.findall(r"\| loss=([0-9.eE+-]+)", stdout)]
+        asset = load_asset(os.path.join(out_dir, "refined_asset"), device=dev)
+        row.update(wall_s=wall, losses=losses, refined_prims=asset["primitives"].num_prims)
+        res[f"refine_{kernel}"] = row
+        del asset
+        if len(losses) != CLI_STEPS or not losses[-1] < losses[0]:
+            fail(f"cli: refine ({kernel}) losses {losses} did not fall over {CLI_STEPS} steps")
+        if row["refined_prims"] != scene.num_prims:
+            fail(f"cli: the refined asset holds {row['refined_prims']} primitives")
+    res["seconds"] = round(time.perf_counter() - t_phase, 2)
+    phase("cli", **res)
+    details["cli"] = res
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="directory for details and a profiler table")
@@ -1695,6 +2328,7 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     details = {}
+    t_start = time.perf_counter()
 
     # ---- 1. probe -------------------------------------------------------
     smi = subprocess.run(
@@ -1844,7 +2478,8 @@ def main() -> None:
         np.random.default_rng(0).choice(WIDTH * WIDTH, size=4096, replace=False)
     ).to(dev)
     t0 = time.perf_counter()
-    exact = rf.radiance(scene, None, o[sel], d[sel], rf.RFConfig(
+    o_sel, d_sel = o[sel], d[sel]  # (phase 22 scores its Epanechnikov frame on them)
+    exact = rf.radiance(scene, None, o_sel, d_sel, rf.RFConfig(
         max_depth=128, srgb_primitives=True, chunk_size=2048))
     torch.cuda.synchronize()
     exact_s = time.perf_counter() - t0
@@ -2223,6 +2858,14 @@ def main() -> None:
     drift_step = replay_train_step(composite3, camera, dev, details, "quat_drift_step",
                                    quat_norm=0.9, kernel_compact=False)
 
+    # ---- 21-25. the 3DGS-asset path: PLY and cameras, the xla route, ----
+    # emitters and the two CLIs
+    paths = asset_io(scene, details)
+    xla_frame(rf_tiled, rf, scene, camera, exact, sel, o_sel, d_sel, details, args.out)
+    xla_train_step(rf_tiled, camera, dev, details)
+    emitter_check(composite3, rf_tiled, scene, camera, details)
+    cli = cli_phase(composite3, rf_tiled, paths, scene, dev, details)
+
     if args.out:
         busy_ms, split = device_profile(
             lambda i: prb_frame(700 + i), args.out, "chip_smoke_prb_profile.txt",
@@ -2250,15 +2893,18 @@ def main() -> None:
         [c[x]["max_abs"] for c in checks + path_checks + [fwd_step_row]
          for x in ("L", "beta")]
         + [b["max_abs_err"] for b in band]
+        + [cli["render_tiled"]["fwd_max_abs_err"], cli["refine_gaussian"]["fwd_max_abs_err"]]
         + [r_[x]["max_abs"] for r_ in prof["rows"] + [band_step["fwd"], drift_step["fwd"]]
            + band_checks for x in ("L", "beta")]
     )
     worst_bwd = max(
-        c[x]["max_abs"] for c in bwd_checks + [details["train_step"]["bwd"], band_step["bwd"],
-                                               drift_step["bwd"]]
-        for x in ("gpf", "gsh")
+        [c[x]["max_abs"] for c in bwd_checks + [details["train_step"]["bwd"], band_step["bwd"],
+                                                drift_step["bwd"]]
+         for x in ("gpf", "gsh")]
+        + [cli["refine_gaussian"]["bwd_max_abs_err"]]
     )
     fwd_bound = sum(w["fwd_bound_ms"] for w in fwd_work)
+    phase("total", seconds=round(time.perf_counter() - t_start, 2))
     print(json.dumps({"kernels": [{
         "name": "composite3_fwd",
         "route": "cuda",
@@ -2281,6 +2927,14 @@ def main() -> None:
         "plain_ms_band": sum(b["plain_ms"] for b in band),
         "bound_ms_band": sum(b["bound_ms"] for b in band),
         "bound_by_band": max(band, key=lambda b: b["bound_ms"])["bound_by"],
+        "launches_cli_render": cli["render_tiled"]["launches"],
+        "ms_cli_render": cli["render_tiled"]["fwd_ms"],
+        "plain_ms_cli_render": cli["render_tiled"]["fwd_plain_ms"],
+        "bound_ms_cli_render": cli["render_tiled"]["fwd_bound_ms"],
+        "launches_cli_refine": cli["refine_gaussian"]["launches_fwd"],
+        "ms_cli_refine": cli["refine_gaussian"]["fwd_ms"],
+        "plain_ms_cli_refine": cli["refine_gaussian"]["fwd_plain_ms"],
+        "bound_ms_cli_refine": cli["refine_gaussian"]["fwd_bound_ms"],
     }, {
         "name": "composite3_bwd",
         "route": "cuda",
@@ -2298,6 +2952,10 @@ def main() -> None:
         "plain_ms_band": band_step["plain_ms"],
         "bound_ms_band": band_step["bwd_bound_ms"],
         "bound_by_band": band_step["bwd_bound_by"],
+        "launches_cli_refine": cli["refine_gaussian"]["launches_bwd"],
+        "ms_cli_refine": cli["refine_gaussian"]["bwd_ms"],
+        "plain_ms_cli_refine": cli["refine_gaussian"]["bwd_plain_ms"],
+        "bound_ms_cli_refine": cli["refine_gaussian"]["bwd_bound_ms"],
     }, {
         "name": "ffwalk",
         "route": "cuda",

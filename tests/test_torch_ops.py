@@ -90,5 +90,5 @@ def test_gaussian_eval_q_and_peak_response():
     ct = tquadric.ray_prim_coeffs(*(torch.from_numpy(x) for x in (o, d, c, s, qt)))
     cj = jquadric.ray_prim_coeffs(o, d, c, s, qt)
     _close(kt.peak_response(ct), kj.peak_response(cj))
-    with pytest.raises(NotImplementedError):
-        tkernels.Kernel("epanechnikov")
+    with pytest.raises(ValueError):  # as JAX's Kernel refuses an unknown type
+        tkernels.Kernel("box")

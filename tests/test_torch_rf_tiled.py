@@ -144,14 +144,24 @@ def test_exact_radiance_matches_jax():
      dict(backend="pallas", use_clusters=False), dict(backend="pallas2", use_clusters=False)],
 )
 def test_unported_options_raise(override):
+    """The options the port refused until the 3DGS-asset slice: each now
+    builds and renders a finite frame, except the fused backend without
+    clusters, which JAX asserts against (ValueError)."""
     cfg = trt.RFTiledConfig(**{**HEADLINE_AT_TEST_SIZE, **override})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.build_state(_port_scene(surface_scene(64)), cfg)
+    scene = _port_scene(surface_scene(64))
+    if cfg.backend == "fused" and not cfg.use_clusters:
+        with pytest.raises(ValueError, match="use_clusters"):
+            trt.build_state(scene, cfg)
+        return
+    img = trt.render_state(trt.build_state(scene, cfg), _cameras(64, 64)[1], cfg, spp=1,
+                           jitter=False)
+    assert img.shape == (64, 64, 3) and bool(torch.isfinite(img).all())
 
 
-@pytest.mark.parametrize("extra", [dict(emitter=object()), dict(mesh=object())])
+@pytest.mark.parametrize("extra", [dict(backend="fused"), dict(backend="xla")])
 def test_unported_render_arguments_raise(extra):
-    cfg = trt.RFTiledConfig(**HEADLINE_AT_TEST_SIZE)
+    """A device mesh is not ported (ROADMAP.md §A7), on either route."""
+    cfg = trt.RFTiledConfig(**{**HEADLINE_AT_TEST_SIZE, **extra})
     state = trt.build_state(_port_scene(surface_scene(64)), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.render_state(state, _cameras(16, 16)[1], cfg, **extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A7"):
+        trt.render_state(state, _cameras(16, 16)[1], cfg, mesh=object())

@@ -34,6 +34,6 @@ def as_device(device=None) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
-from . import accel, kernels, models, ops, optim, scene  # noqa: E402
+from . import accel, kernels, models, ops, optim, scene, utils  # noqa: E402
 
 __version__ = "0.1.0"

@@ -2,7 +2,9 @@
 (volprim_tpu.models.base).
 
 ``render`` generates jittered camera rays per sample, evaluates a radiance
-function over the whole wavefront and splats the result onto the film.
+function over the whole wavefront and splats the result onto the film;
+``render_batch`` does the same for N same-sized cameras side by side on
+one wide film (the reference's batch sensor).
 Randomness comes from one explicit ``torch.Generator`` on the render's
 device: the film jitter and then the radiance function's own draws, sample
 after sample. It does not reproduce ``jax.random`` bits.
@@ -11,8 +13,9 @@ after sample. It does not reproduce ``jax.random`` bits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 from ..ops import filters
@@ -94,5 +97,66 @@ def render(
         o, d = rays_from_pixels(camera, px, py)
         radiance = radiance_fn(primitives, emitter, o, d, cfg, generator)
         img, wgt = filters.splat_box(radiance, px, py, w, h)
+        film = Film(film.img + img, film.wgt + wgt)
+    return film.develop()
+
+
+def batch_rays(cameras: Sequence[CameraSpecs], px: torch.Tensor, py: torch.Tensor):
+    """Rays of N cameras through their film coordinates px, py [N, R]:
+    (o, d) [N * R, 3], camera after camera."""
+    dev = px.device
+    f32 = torch.float32
+    rot = torch.as_tensor(np.stack([c.to_world[:3, :3] for c in cameras]), dtype=f32,
+                          device=dev)
+    origin = torch.as_tensor(np.stack([c.to_world[:3, 3] for c in cameras]), dtype=f32,
+                             device=dev)
+    focal = torch.tensor([c.focal_length for c in cameras], dtype=f32, device=dev)[:, None]
+    ppx = torch.tensor([c.width / 2.0 - c.cx for c in cameras], dtype=f32, device=dev)[:, None]
+    ppy = torch.tensor([c.height / 2.0 - c.cy for c in cameras], dtype=f32, device=dev)[:, None]
+    dl = torch.stack([-(px - ppx) / focal, -(py - ppy) / focal, torch.ones_like(px)], dim=-1)
+    d = torch.einsum("nij,nrj->nri", rot, dl)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    o = origin[:, None, :].expand(d.shape)
+    return o.reshape(-1, 3), d.reshape(-1, 3)
+
+
+def render_batch(
+    primitives: EllipsoidScene,
+    cameras: Sequence[CameraSpecs],
+    radiance_fn: Callable[..., torch.Tensor],
+    cfg: Any,
+    emitter=None,
+    spp: int = 1,
+    generator: torch.Generator = None,
+    rfilter: str = "box",
+    mesh=None,
+) -> torch.Tensor:
+    """Render N same-resolution cameras side by side into one wide film,
+    camera i in columns [i W, (i + 1) W): [H, N W, 3] on the primitives'
+    device. Every sample draws the jitter of all N films from
+    ``generator`` (required, on that device), then evaluates all their rays
+    in one wavefront."""
+    if generator is None:
+        raise ValueError("render_batch needs an explicit torch.Generator on the render's device")
+    if rfilter != "box":
+        raise NotImplementedError(f"rfilter={rfilter!r} is not ported (ROADMAP.md §A5)")
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported (ROADMAP.md §A7)")
+    h, w = cameras[0].height, cameras[0].width
+    if any((c.height, c.width) != (h, w) for c in cameras):
+        raise ValueError("the batch sensor needs cameras of one film size")
+    n = len(cameras)
+    dev = primitives.device
+    px0 = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w).reshape(-1)
+    py0 = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w).reshape(-1)
+    shift = (torch.arange(n, dtype=torch.float32, device=dev) * w)[:, None]
+    film = Film(torch.zeros((h, n * w, 3), device=dev), torch.zeros((h, n * w), device=dev))
+    for _ in range(spp):
+        off = torch.rand((n, h * w, 2), generator=generator, device=dev)
+        px, py = px0 + off[..., 0], py0 + off[..., 1]
+        o, d = batch_rays(cameras, px, py)
+        radiance = radiance_fn(primitives, emitter, o, d, cfg, generator)
+        img, wgt = filters.splat_box(radiance, (px + shift).reshape(-1), py.reshape(-1),
+                                     n * w, h)
         film = Film(film.img + img, film.wgt + wgt)
     return film.develop()

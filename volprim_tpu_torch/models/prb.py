@@ -104,7 +104,7 @@ class PRBConfig:
 
     @property
     def kernel(self) -> Kernel:
-        return Kernel(self.kernel_type)
+        return Kernel(self.kernel_type, normalized=False, full_range=False)
 
     @property
     def num_bounces(self) -> int:
@@ -136,7 +136,13 @@ def _check_ported(cfg: PRBConfig) -> None:
         raise NotImplementedError("use_clusters is not ported (ROADMAP.md §A5)")
     if cfg.coeff_gemm:
         raise NotImplementedError("coeff_gemm is not ported (ROADMAP.md §A5)")
-    cfg.kernel  # the Epanechnikov kernel raises here (ROADMAP.md §A4)
+    if cfg.kernel.type != "gaussian":
+        # JAX sends every kernel but the unnormalized Gaussian down its
+        # general walk, not the fused one this slice ports
+        raise NotImplementedError(
+            f"kernel_type={cfg.kernel_type!r}: the path tracer's general walk for "
+            "non-Gaussian kernels is not ported (ROADMAP.md §A5)"
+        )
 
 
 def _mis_weight(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:
@@ -483,7 +489,8 @@ def optical_depth(
         valid, _, t_far = quadric.intersect_extent(coeffs, prims.extent)
         is_real = torch.arange(start, start + c, device=o.device) < primitives.num_prims
         valid = valid & (t_far > 0.0) & is_real[None, :]
-        dens = kern.density_integral(coeffs, sprod_all[sl][None, :], t0, t1, valid)
+        dens = kern.density_integral(coeffs, sprod_all[sl][None, :], prims.scales[sl][None],
+                                     prims.extent, t0, t1, valid)
         tau = tau + torch.sum(dens * prims.attrs["sigma_t"][sl, 0][None, :], dim=1)
     return tau
 

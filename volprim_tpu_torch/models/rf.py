@@ -2,8 +2,10 @@
 
 Every ray composites its ``max_depth`` nearest entered bounding ellipsoids
 in entry-t order: 3DGRT peak transmittance ``1 - min(opac * K(peak),
-0.9999)`` and SH emission ``max(basis . sh + 0.5, 0)``, front to back, with
-the beta > 0.01 kill. This is the port's quality oracle for the tiled
+0.9999)`` (K the Gaussian or the Epanechnikov kernel) and SH emission
+``max(basis . sh + 0.5, 0)``, front to back, with the beta > 0.01 kill; an
+emitter, when given, adds ``beta * emitter.eval(d)`` as the escaped light
+(the JAX package's ``white_background``). This is the port's quality oracle for the tiled
 renderer (models/rf_tiled.py), which approximates the per-ray order.
 """
 
@@ -30,7 +32,7 @@ class RFConfig:
 
     @property
     def kernel(self) -> Kernel:
-        return Kernel(self.kernel_type)
+        return Kernel(self.kernel_type, normalized=True, full_range=True)
 
     @property
     def use_rr(self) -> bool:
@@ -99,11 +101,7 @@ def radiance(
     """Radiance for a wavefront of rays: o, d [R, 3] -> [R, 3].
 
     ``generator`` drives Russian roulette when ``cfg.rr_depth >= 0``. An
-    ``emitter`` (escaped-ray environment) is not ported yet."""
-    if emitter is not None:
-        raise NotImplementedError(
-            "emitters are not ported yet (ROADMAP.md §A: path-tracer slice)"
-        )
+    ``emitter`` lights the escaped rays: ``L += beta * emitter.eval(d)``."""
     primitives.require_attrs(["opacities", "sh_coeffs"])
     kern = cfg.kernel
     k = cfg.max_depth if cfg.max_depth > 0 else 256
@@ -126,7 +124,7 @@ def radiance(
             o, d, primitives.centers[id_h], primitives.scales[id_h],
             primitives.quats[id_h],
         )
-        density = kern.peak_response(coeffs)  # exp(-q_min/2)
+        density = kern.peak_response(coeffs)
         transmission = 1.0 - torch.clamp(opac[id_h] * density, max=0.9999)
         emission = torch.sum(basis[:, :, None] * sh_coeffs[id_h], dim=1)
         emission = torch.clamp(emission + 0.5, min=0.0)
@@ -148,6 +146,8 @@ def radiance(
             )
             active = active & (~rr_active | (sample_rr < rr_prob))
 
+    if emitter is not None:
+        l_acc = l_acc + beta * emitter.eval(d)
     if cfg.srgb_primitives:
         l_acc = srgb_to_linear(l_acc)
     return l_acc

@@ -21,23 +21,29 @@ kernel, sRGB and the sample sum. The cull (Morton codes, cluster and
 supercluster spheres, cone keys, shortlists) selects integer ids and is
 computed on detached tensors.
 
-Ported: ``backend='fused'`` with the two-level cull, ``budget_classes``,
-``kernel_compact``, ``cluster_sort``, the banded order correction
-(``order_band``, per class ``band_classes``) and the refinement of
-truncated tiles (``refine_fraction``, ``refine_factor``); ``backend='pallas'`` (v1:
-kernels/composite.py + composite_vjp.py) and ``backend='pallas2'`` (v2,
-camera-relative: kernels/composite2.py), which expand the cluster shortlist
-to primitives, refine it with ``prim_resort`` (True, 'entry', 'cluster',
-'cluster-entry'; on by default, as in JAX), gather [T, S, F] feature, SH and
-opacity tables built by ``build_state`` and composite one sample per
-launch (CUDA kernels on the card, forward and backward). The fused-only
-knobs (``budget_classes``, ``kernel_compact``, ``cluster_sort``) are
-ignored by v1 and v2, as in JAX. The TPU layout knobs (``feat_major``,
-``kernel_batch``, ``tile_group``) have no counterpart. The fused
+Backends: ``'fused'`` (v3: kernels/composite3.py) with the two-level cull,
+``budget_classes``, ``kernel_compact``, ``cluster_sort``, the banded order
+correction (``order_band``, per class ``band_classes``), the refinement of
+truncated tiles (``refine_fraction``, ``refine_factor``) and, with
+``prim_resort``, the in-block resort of each tile's packed columns by their
+entry distance (pack row 15), as JAX's fused block does; and the shortlist
+backends, which expand the cluster shortlist to primitives, refine it with
+``prim_resort`` (True, 'entry', 'cluster', 'cluster-entry'; on by default,
+as in JAX), gather [T, S, F] feature, SH and opacity tables built by
+``build_state`` and composite one sample at a time: ``'pallas'`` (v1:
+kernels/composite.py + composite_vjp.py), ``'pallas2'`` (v2, camera
+relative: kernels/composite2.py) and ``'xla'`` (:func:`_composite_group_xla`,
+plain PyTorch under autograd: JAX's backend is plain XLA too). With
+``use_clusters=False`` the shortlist backends cull every primitive per tile
+(flat culling; the fused backend needs clusters). The fused-only knobs
+(``budget_classes``, ``kernel_compact``, ``cluster_sort``) are ignored by the
+others, as in JAX. Only the xla backend reads ``kernel_type``: the
+compositor kernels are Gaussian, as JAX's are. An emitter adds
+``beta * emitter.eval(d)`` per sample before the sRGB conversion. The fused
 compositor always walks a tile's full stream (its beta is the full capped
-product), so ``early_exit`` changes nothing here. What is not ported yet
-(the ``xla`` backend, ``use_clusters=False``, ``prim_resort`` with the
-fused backend) raises NotImplementedError naming its ROADMAP.md item.
+product), so ``early_exit`` changes only the xla backend, which stops a tile
+once none of its rays is above ``beta_kill``. The TPU layout knobs
+(``feat_major``, ``kernel_batch``) have no counterpart.
 
 ``_DEBUG_STOP`` (set by tools/profile_rf.py) makes a frame return early, as
 JAX's does: after the cull ("cull") or the pack ("pack"), or inside each
@@ -81,12 +87,18 @@ class RFTiledConfig:
     beta_kill: float = 0.01
     use_clusters: bool = True
     cluster_size: int = 64
-    early_exit: bool = False  # accepted for parity; see the module docstring
-    # 'fused' (v3), 'pallas' (v1) or 'pallas2' (v2); the JAX default,
-    # 'xla', is not ported
-    backend: str = "fused"
-    # per-primitive depth refinement of the v1/v2 shortlist: None (on for
-    # v1/v2), False, True, 'entry', 'cluster' or 'cluster-entry'
+    # tiles per vectorised step of the xla backend: a memory knob, the image
+    # does not depend on it; on the card the step grows to _GROUP_PAIRS
+    tile_group: int = 8
+    # the xla backend stops a tile once none of its rays is above beta_kill
+    # (one host read per segment); see the module docstring for the fused
+    early_exit: bool = False
+    # 'xla', 'fused' (v3), 'pallas' (v1) or 'pallas2' (v2)
+    backend: str = "xla"
+    # per-primitive depth refinement of the shortlist: None (on for
+    # xla/v1/v2, off for fused), False, True, 'entry', 'cluster' or
+    # 'cluster-entry'; the fused backend sorts its packed columns by entry
+    # distance whatever the truthy mode
     prim_resort: Optional[bool] = None
     # two-level cull: strips of coarse_group tiles select superclusters
     # (coarse_factor x the per-tile budget), then each tile culls its
@@ -114,22 +126,15 @@ class RFTiledConfig:
 
     @property
     def kernel(self) -> Kernel:
-        return Kernel(self.kernel_type)
+        return Kernel(self.kernel_type, normalized=True, full_range=True)
 
 
 def _check_config(cfg: RFTiledConfig) -> None:
-    """Refuse what is not ported yet, naming the ROADMAP.md item."""
-    todo = {
-        f"backend={cfg.backend!r}": cfg.backend not in ("fused", "pallas", "pallas2"),
-        "use_clusters=False": not cfg.use_clusters,
-        "prim_resort with backend='fused'": cfg.backend == "fused" and bool(cfg.prim_resort),
-    }
-    missing = [k for k, v in todo.items() if v]
-    if missing:
-        raise NotImplementedError(
-            f"rf_tiled: {', '.join(missing)} not ported yet "
-            "(ROADMAP.md §A2, the rest of rf_tiled)"
-        )
+    """Refuse configurations that JAX asserts against or cannot name."""
+    if cfg.backend not in ("xla", "fused", "pallas", "pallas2"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    if cfg.backend == "fused" and not cfg.use_clusters:
+        raise ValueError("backend='fused' requires use_clusters=True")
     if cfg.prim_resort not in (None, False, True, "entry", "cluster", "cluster-entry"):
         raise ValueError(f"unknown prim_resort {cfg.prim_resort!r}")
     if cfg.backend == "fused":
@@ -142,39 +147,76 @@ def _check_config(cfg: RFTiledConfig) -> None:
                 "band_classes needs one band per budget_classes entry, got "
                 f"{len(cfg.band_classes)} for {len(cfg.budget_classes)} classes"
             )
-    cfg.kernel  # refuses non-Gaussian kernels
+    cfg.kernel  # refuses unknown kernel types
 
 
 @dataclasses.dataclass
 class RFTiledState:
     """Per-scene render state (rebuild when primitive parameters change)."""
 
-    prims: EllipsoidScene  # Morton-sorted and padded to a cluster multiple
-    cull_centers: torch.Tensor  # [Ncl, 3] cluster bounding spheres
-    cull_radii: torch.Tensor  # [Ncl]
+    # Morton-sorted and padded to a cluster multiple (the scene as given
+    # without clusters)
+    prims: EllipsoidScene
+    cull_centers: torch.Tensor  # [Ncl, 3] cluster bounding spheres (or [N, 3])
+    cull_radii: torch.Tensor  # [Ncl] (or [N]: extent x the largest scale)
+    # the cluster tables (None without clusters):
     # [Ncl, 3k*cs] bf16 cluster rows, each a channel-major [3k, cs] block
     # of folded SH (kernels.composite3.fold_sh_rows)
-    shrows: torch.Tensor
-    sup_centers: torch.Tensor  # [Nsup, 3] supercluster spheres
-    sup_radii: torch.Tensor  # [Nsup]
+    shrows: Optional[torch.Tensor] = None
+    sup_centers: Optional[torch.Tensor] = None  # [Nsup, 3] supercluster spheres
+    sup_radii: Optional[torch.Tensor] = None  # [Nsup]
     # [Nsup + 1, 4*sg] member-cluster spheres, each a [4, sg] block
     # (cx, cy, cz, r); the trailing row has r = -1 (never hits)
-    suprows: torch.Tensor
+    suprows: Optional[torch.Tensor] = None
     extent: float = 3.0
+    clustered: bool = True
     cluster_size: int = 64
     super_group: int = 16
     sh_k: int = 1  # live SH coefficients per channel
-    # v1/v2 tables, built only for backend 'pallas' / 'pallas2' (None else):
-    # [N, 16] quadric features (10 used; v1 only), [N] opacities and [N, 48]
-    # channel-major SH blocks of 16
+    # the shortlist backends' tables, built only for 'xla', 'pallas' and
+    # 'pallas2' (None else): [N, 16] quadric features (10 used; xla and v1),
+    # [N] opacities and [N, 48] channel-major SH blocks of 16
     feats16: Optional[torch.Tensor] = None
     opac: Optional[torch.Tensor] = None
     sh48: Optional[torch.Tensor] = None
 
 
 def build_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledState:
-    """Morton-sort, cluster and pack the scene for tiled rendering."""
+    """Morton-sort, cluster and pack the scene for tiled rendering (or,
+    with ``use_clusters=False``, keep it as it is with one cull sphere per
+    primitive)."""
     _check_config(cfg)
+    if cfg.use_clusters:
+        state = _cluster_state(primitives, cfg)
+    else:
+        # the cull spheres select integer ids and carry no gradient
+        state = RFTiledState(
+            prims=primitives,
+            cull_centers=primitives.centers.detach(),
+            cull_radii=primitives.extent * torch.amax(primitives.scales.detach(), dim=-1),
+            extent=float(primitives.extent),
+            clustered=False,
+            cluster_size=cfg.cluster_size,
+            super_group=cfg.super_group,
+            sh_k=primitives.sh_coeffs_3d().shape[1],
+        )
+    if cfg.backend == "fused":
+        return state
+    work = state.prims
+    sh_coeffs = work.sh_coeffs_3d()  # [N, k, 3]
+    n, k = sh_coeffs.shape[:2]
+    zeros = sh_coeffs.new_zeros((n, _SH - k))
+    state.sh48 = torch.cat([t for ch in range(3) for t in (sh_coeffs[:, :, ch], zeros)], dim=1)
+    state.opac = work.attrs["opacities"][:, 0]
+    if cfg.backend in ("pallas", "xla"):
+        feats = quadric.prim_features(work.centers, work.scales, work.quats)
+        state.feats16 = torch.cat([feats.T, feats.new_zeros((n, 6))], dim=1)
+    return state
+
+
+def _cluster_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledState:
+    """The clustered state: Morton order, cluster and supercluster spheres
+    and the fused path's bf16 SH cluster rows."""
     cs, sg = cfg.cluster_size, cfg.super_group
     padded = pad_primitives(primitives, cs)
     # the cull geometry (Morton order, cluster and supercluster spheres)
@@ -214,16 +256,6 @@ def build_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledState:
     )
     tail = suprows.new_zeros((1, 4 * sg))
     tail[0, 3 * sg:] = -1.0
-    tables = {}
-    if cfg.backend in ("pallas", "pallas2"):
-        zeros = sh_coeffs.new_zeros((n, _SH - k))
-        tables["sh48"] = torch.cat(
-            [t for ch in range(3) for t in (sh_coeffs[:, :, ch], zeros)], dim=1
-        )
-        tables["opac"] = work.attrs["opacities"][:, 0]
-    if cfg.backend == "pallas":
-        feats = quadric.prim_features(work.centers, work.scales, work.quats)
-        tables["feats16"] = torch.cat([feats.T, feats.new_zeros((n, 6))], dim=1)
     return RFTiledState(
         prims=work,
         cull_centers=index.centers,
@@ -236,7 +268,6 @@ def build_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledState:
         cluster_size=cs,
         super_group=sg,
         sh_k=k,
-        **tables,
     )
 
 
@@ -310,24 +341,20 @@ def render_state(
     depend only on its global tile id; they are not ``jax.random``'s bits,
     so parity checks use ``jitter=False`` (pixel centers)."""
     _check_config(cfg)
-    if emitter is not None:
-        raise NotImplementedError(
-            "rf_tiled: emitters are not ported yet (ROADMAP.md §A, path-tracer slice)"
-        )
     if mesh is not None:
         raise NotImplementedError(
-            "rf_tiled: mesh sharding is not ported yet (ROADMAP.md §A, parallel/)"
+            "rf_tiled: mesh sharding is not ported yet (ROADMAP.md §A7)"
         )
     dev = state.cull_centers.device
     px0, py0, tile_ids, unshuffle = _tile_layout(camera, cfg, dev)
     acc = _render_tiles(
-        state, px0, py0, tile_ids, camera, cfg=cfg, spp=spp, seed=int(seed),
+        state, emitter, px0, py0, tile_ids, camera, cfg=cfg, spp=spp, seed=int(seed),
         jitter=jitter,
     )
     return unshuffle(acc)
 
 
-def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
+def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
     """Cull, gather and composite the tiles. Returns [T, RT, 3]."""
     dev = px0.device
     f32 = torch.float32
@@ -367,8 +394,19 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
     half = torch.arccos(torch.clamp(cos_half, -1.0, 1.0)) + 1.5 / focal
     cos_half = torch.cos(half)
 
-    gc = cfg.coarse_group
     use_fused = cfg.backend == "fused"
+    resort = cfg.prim_resort if cfg.prim_resort is not None else not use_fused
+    shortlist_kw = dict(cfg=cfg, spp=spp, seed=seed, jitter=jitter)
+    if not state.clustered:
+        # flat culling: every primitive's sphere against every tile cone
+        keys = tiling.cone_cull_keys_batch(
+            origin, axis, cos_half, state.cull_centers, state.cull_radii
+        )
+        ids, valid = tiling.shortlist(keys, s)
+        return _render_shortlist(state, emitter, ids, valid, origin, dirs_cols, px0, py0,
+                                 tile_ids, **shortlist_kw)
+
+    gc = cfg.coarse_group
     use_classes = bool(cfg.budget_classes) and use_fused  # fused only, as in JAX
     id_map = strips = None
     if gc > 1 and n_tiles % gc == 0:
@@ -432,8 +470,11 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
             cl_ids, cl_valid = tiling.shortlist(keys, k_cl)
 
     if not use_fused:
-        return _render_v12(state, cl_ids, cl_valid, origin, axis, dirs_cols, px0, py0,
-                           tile_ids, n_tiles, cfg=cfg, spp=spp, seed=seed, jitter=jitter)
+        ids, valid = clusters.expand_cluster_ids(cl_ids, cl_valid, cs)
+        if resort:
+            ids, valid = _resort(state, ids, valid, origin, axis, resort)
+        return _render_shortlist(state, emitter, ids, valid, origin, dirs_cols, px0, py0,
+                                 tile_ids, **shortlist_kw)
 
     # ---- per-frame pack: [Ncl, 16*cs] cluster rows -------------------------
     ncl = work.num_prims // cs
@@ -497,6 +538,13 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
             .permute(0, 2, 1, 3)
             .reshape(tb, 3 * kl, s_here)
         )
+        if resort:
+            # every column of the tile in entry-distance order (pack row
+            # 15; invalid columns last), as JAX's fused block sorts them
+            order = torch.argsort(torch.where(valid_row, pf_t[:, 15], torch.inf), dim=-1,
+                                  stable=True)
+            pf_t = torch.gather(pf_t, 2, order[:, None, :].expand(pf_t.shape))
+            sh_t = torch.gather(sh_t, 2, order[:, None, :].expand(sh_t.shape))
         if _DEBUG_STOP == "gather":
             probe = (pf_t.sum() + sh_t.to(f32).sum() + n_seg_t.sum().to(f32)) * 1e-12
             return probe.expand(tb, rt, 3), torch.ones((tb, rt), device=dev)
@@ -508,9 +556,8 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
             for j in range(fold):
                 off = _tile_offsets(seed, g * fold + j, tid_b, n_tiles, rt, jitter, dev)
                 cols.append(dirs_cols(px_b + off[..., 0], py_b + off[..., 1]))
-            d8 = composite3.pack_direction_rows(
-                *(torch.cat([c[i] for c in cols], dim=1) for i in range(3))
-            )
+            dirs = [torch.cat([c[i] for c in cols], dim=1) for i in range(3)]
+            d8 = composite3.pack_direction_rows(*dirs)
             l, beta = composite3.composite_tiles3(
                 d8, pf_t, sh_t, n_seg_t,
                 seg=seg,
@@ -523,6 +570,8 @@ def _render_tiles(state, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
             )
             if beta0 is None:
                 beta0 = beta[:, :rt]
+            if emitter is not None:
+                l = l + beta[..., None] * emitter.eval(torch.stack(dirs, dim=-1))
             if cfg.srgb_primitives:
                 l = srgb_to_linear(l)  # per sample
             acc_b = acc_b + l.reshape(tb, fold, rt, 3).sum(dim=1)
@@ -636,19 +685,15 @@ def _resort(state, ids, valid, origin, axis, mode):
     return torch.gather(ids, 1, order), torch.gather(valid, 1, order)
 
 
-def _render_v12(state, cl_ids, cl_valid, origin, axis, dirs_cols, px0, py0, tile_ids,
-                n_tiles, *, cfg, spp, seed, jitter):
-    """The v1 / v2 backends after the cull (rf_tiled.py:724-767,
-    :1152-1267): expand the cluster shortlist to primitives, refine its
-    order (prim_resort), pad it to a segment multiple, gather the [T, S, F]
+def _render_shortlist(state, emitter, ids, valid, origin, dirs_cols, px0, py0, tile_ids, *,
+                      cfg, spp, seed, jitter):
+    """The shortlist backends after the cull (rf_tiled.py:1152-1267): pad the
+    primitive shortlist [T, S] to a segment multiple, gather the [T, S, F]
     tables with neutral rows and zero opacity on invalid slots, and
-    composite one sample per launch. Returns [T, RT, 3]."""
+    composite one sample at a time (v1, v2 or xla); an emitter lights what
+    each ray's beta leaves. Returns [T, RT, 3]."""
     dev = px0.device
-    rt = px0.shape[1]
-    ids, valid = clusters.expand_cluster_ids(cl_ids, cl_valid, state.cluster_size)
-    resort = True if cfg.prim_resort is None else cfg.prim_resort
-    if resort:
-        ids, valid = _resort(state, ids, valid, origin, axis, resort)
+    n_tiles, rt = px0.shape
     s = ids.shape[1]
     # the compositors take whole segments: pad small shortlists
     seg = min(cfg.segment, s)
@@ -662,9 +707,10 @@ def _render_v12(state, cl_ids, cl_valid, origin, axis, dirs_cols, px0, py0, tile
     kw = dict(seg=seg, extent2=state.extent ** 2, max_depth=max_depth,
               beta_kill=cfg.beta_kill)
     k = state.sh_k
-    if cfg.backend == "pallas":
+    if cfg.backend in ("pallas", "xla"):
         pf_t = torch.where(valid[..., None], state.feats16[ids], _neutral_feature(dev))
-        opac_t = opac_t[:, None, :].contiguous()
+        if cfg.backend == "pallas":
+            opac_t = opac_t[:, None, :].contiguous()
     else:
         cam = composite2.camera_relative_features_from_prims(state.prims, origin)
         pf_t = torch.where(valid[..., None], cam[ids], composite2.neutral_row(origin))
@@ -683,16 +729,130 @@ def _render_v12(state, cl_ids, cl_valid, origin, axis, dirs_cols, px0, py0, tile
             fa, fb, fc = (torch.cat([f, pad], -1).reshape(n_tiles, rt, 16) for f in (fa, fb, fc))
             basis = sh.eval_basis(d_flat, sh.degree_from_coeffs(k))
             basis = torch.cat([basis, d_flat.new_zeros((d_flat.shape[0], _SH - k))], -1)
-            l, _ = composite_vjp.composite_tiles_ad(
+            l, beta = composite_vjp.composite_tiles_ad(
                 fa, fb, fc, basis.reshape(n_tiles, rt, _SH), pf_t, opac_t, sh_t, **kw
             )
-        else:
+        elif cfg.backend == "pallas2":
             d8 = torch.cat([d, d.new_zeros(d.shape[:-1] + (5,))], dim=-1)
-            l, _ = composite2.composite_tiles2(d8, pf_t, aux_t, sh_t, sh_k=k, **kw)
+            l, beta = composite2.composite_tiles2(d8, pf_t, aux_t, sh_t, sh_k=k, **kw)
+        else:
+            l, beta = _composite_tiles_xla(origin, d, pf_t, opac_t, sh_t, valid, k,
+                                           state.extent, cfg)
+        if emitter is not None:
+            l = l + beta[..., None] * emitter.eval(d)
         if cfg.srgb_primitives:
             l = srgb_to_linear(l)  # per sample
         acc = acc + l
     return acc / spp
+
+
+# pairs (rays x shortlist columns) per vectorised step of the xla backend:
+# a step's tiles grow past cfg.tile_group up to this many
+# (scripts/xla_memory.py: of 2^24, 2^26 and 2^28, the largest gave the
+# fastest headline-sized frame on the card)
+_GROUP_PAIRS = 1 << 28
+
+
+def _composite_tiles_xla(origin, d, pf, opac, sh48, valid, basis_k, extent, cfg):
+    """The xla backend over every tile, in steps of
+    max(cfg.tile_group, _GROUP_PAIRS // (RT S)) tiles (the last step may
+    be short). Under autograd every step's intermediates stay saved (40.0
+    GiB at the headline train step, on the card; scripts/xla_memory.py).
+    d [T, RT, 3], pf [T, S, 16], opac [T, S], sh48 [T, S, 48], valid [T, S]
+    -> (L [T, RT, 3], beta [T, RT])."""
+    n_tiles, rt = d.shape[:2]
+    g = min(n_tiles, max(cfg.tile_group, _GROUP_PAIRS // (rt * pf.shape[1])))
+    parts = [
+        _composite_group_xla(origin, d[t0:t0 + g], pf[t0:t0 + g], opac[t0:t0 + g],
+                             sh48[t0:t0 + g], valid[t0:t0 + g], basis_k, extent, cfg)
+        for t0 in range(0, n_tiles, g)
+    ]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _composite_group_xla(origin, d, pf, opac, sh48, valid, basis_k, extent, cfg):
+    """JAX's ``_composite_tile_xla`` (rf_tiled.py:334-457) over a group of
+    G tiles: per segment of the shortlist, a, b, c as full-f32 products of
+    the ray and primitive features, q = c - b^2/a, the hit test on the
+    extent ellipsoid, alpha = min(opacity K(q), 0.9999), the max_depth cap
+    by cumulative hit count, the transmittance prefix (banded order
+    correction within the segment with order_band), the beta_kill cut on
+    beta * prefix and the clamped SH emission. With ``early_exit`` a tile
+    stops at the first segment where none of its rays is above beta_kill
+    (one host read per segment, JAX's while_loop condition).
+    d [G, RT, 3], pf [G, S, 16], opac [G, S], sh48 [G, S, 48], valid [G, S]
+    -> (L [G, RT, 3], beta [G, RT])."""
+    kern = cfg.kernel
+    g, rt = d.shape[:2]
+    s = pf.shape[1]
+    c = min(cfg.segment, s)
+    d_flat = d.reshape(-1, 3).to(pf.dtype)  # (an f64 yardstick's tables are f64)
+    origin = origin.to(pf.dtype)
+    fa, fb, fc = (f.reshape(g, rt, 10)
+                  for f in quadric.ray_features(origin.expand_as(d_flat), d_flat))
+    basis = sh.eval_basis(d_flat, sh.degree_from_coeffs(basis_k)).reshape(g, rt, basis_k)
+    e2 = extent * extent
+    band = min(int(cfg.order_band), c - 1)  # offsets beyond the segment are empty
+
+    l_acc = pf.new_zeros((g, rt, 3))
+    beta = pf.new_ones((g, rt))
+    count = torch.zeros((g, rt), dtype=torch.int32, device=d.device)
+    for si in range(s // c):
+        live = None
+        if cfg.early_exit:
+            live = torch.any(beta > cfg.beta_kill, dim=1)  # [G]
+            if not bool(live.any()):
+                break
+        sl = slice(si * c, (si + 1) * c)
+        pf_s = pf[:, sl, :10].transpose(1, 2)  # [G, 10, C]
+        a = torch.matmul(fa, pf_s)  # [G, RT, C]
+        b = torch.matmul(fb, pf_s)
+        cc = torch.matmul(fc, pf_s)
+        q_min = torch.clamp(cc - b * b / a, min=0.0)
+        disc = (e2 - q_min) / a
+        t_near = -b / a - torch.sqrt(torch.clamp(disc, min=0.0))
+        hit = (disc >= 0.0) & (t_near > 0.0) & valid[:, None, sl]
+        alpha = torch.clamp(opac[:, None, sl] * kern.eval_q(q_min), max=0.9999)
+        alpha = torch.where(hit, alpha, 0.0)
+        new_count = count[..., None] + torch.cumsum((alpha > 0.0).to(torch.int32), dim=-1,
+                                                    dtype=torch.int32)
+        if cfg.max_depth > 0:
+            alpha = torch.where(new_count <= cfg.max_depth, alpha, 0.0)
+        trans = 1.0 - alpha
+        cp = torch.cumprod(trans, dim=-1)
+        excl = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+        if band > 0:
+            # JAX's intra-segment banded correction (see its order_band
+            # docstring): j = i + s nearer joins i's prefix, j = i - s
+            # farther leaves it; dead columns carry trans = 1
+            tkey = torch.where(alpha > 0.0, t_near, torch.inf)
+            inf_b = torch.full_like(tkey[..., :1], torch.inf)
+            one_b = torch.ones_like(trans[..., :1])
+            for s_ in range(1, band + 1):
+                t_f = torch.cat([tkey[..., s_:], inf_b.expand(g, rt, s_)], dim=-1)
+                tr_f = torch.cat([trans[..., s_:], one_b.expand(g, rt, s_)], dim=-1)
+                excl = excl * torch.where(t_f < tkey, tr_f, 1.0)
+                t_b = torch.cat([-inf_b.expand(g, rt, s_), tkey[..., :c - s_]], dim=-1)
+                tr_b = torch.cat([one_b.expand(g, rt, s_), trans[..., :c - s_]], dim=-1)
+                excl = excl / torch.where(t_b > tkey, tr_b, 1.0)
+        pre = beta[..., None] * excl
+        weight = torch.where(pre > cfg.beta_kill, pre * alpha, 0.0)
+        sh_s = sh48[:, sl]  # [G, C, 48]
+        emission = []
+        for ch in range(3):
+            sh_ch = sh_s[..., ch * _SH:ch * _SH + basis_k].transpose(1, 2)  # [G, k, C]
+            e_ch = torch.clamp(torch.matmul(basis, sh_ch) + 0.5, min=0.0)
+            emission.append(torch.sum(weight * e_ch, dim=-1))
+        l_new = l_acc + torch.stack(emission, dim=-1)
+        beta_new = beta * cp[..., -1]
+        count_new = new_count[..., -1]
+        if live is None:
+            l_acc, beta, count = l_new, beta_new, count_new
+        else:  # tiles that stopped keep their carry
+            l_acc = torch.where(live[:, None, None], l_new, l_acc)
+            beta = torch.where(live[:, None], beta_new, beta)
+            count = torch.where(live[:, None], count_new, count)
+    return l_acc, beta
 
 
 def _class_counts(n_tiles: int, budget_classes) -> list:

@@ -1,7 +1,10 @@
-"""Camera records and primary-ray generation (volprim_tpu.scene.cameras).
+"""Camera records, their JSON / KRT loaders and primary-ray generation
+(volprim_tpu.scene.cameras).
 
 Mitsuba convention: the camera's local +x points image-left, +y image-up,
 +z along the view direction; pixel (0, 0) is the top-left of the film.
+3DGS's ``cameras.json`` uses +x right, +y down: its loader and writer flip
+the first two axes.
 Jitter draws from an explicit ``torch.Generator``; it does not reproduce
 ``jax.random`` bits, so parity checks render with ``jitter=False``.
 """
@@ -9,7 +12,8 @@ Jitter draws from an explicit ``torch.Generator``; it does not reproduce
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import json
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -78,6 +82,48 @@ class CameraSpecs:
         elif self.focal_length is None:
             self.focal_length = fov2focal(self.fov, self.width)
 
+    def scaled(self, factor: float) -> "CameraSpecs":
+        """A copy with the film, focal length and principal-point offsets
+        scaled by ``factor`` (the fov follows from the focal length)."""
+        return dataclasses.replace(
+            self,
+            width=int(self.width * factor),
+            height=int(self.height * factor),
+            focal_length=self.focal_length * factor,
+            fov=None,
+            cx=self.cx * factor,
+            cy=self.cy * factor,
+        )
+
+    def to_dict(self) -> dict:
+        return {
+            "type": "perspective",
+            "name": self.name,
+            "fov": self.fov,
+            "width": self.width,
+            "height": self.height,
+            "to_world": self.to_world.tolist(),
+            "near_clip": self.near_clip,
+            "far_clip": self.far_clip,
+            "principal_point_offset_x": self.cx,
+            "principal_point_offset_y": self.cy,
+        }
+
+    @staticmethod
+    def from_dict(d: dict, name: str = "") -> "CameraSpecs":
+        return CameraSpecs(
+            name=d.get("name", name),
+            width=int(d["width"]),
+            height=int(d["height"]),
+            to_world=np.asarray(d["to_world"]),
+            fov=d.get("fov"),
+            focal_length=d.get("focal_length"),
+            near_clip=d.get("near_clip", 0.1),
+            far_clip=d.get("far_clip", 10000.0),
+            cx=d.get("principal_point_offset_x", 0.0),
+            cy=d.get("principal_point_offset_y", 0.0),
+        )
+
 
 def rays_from_pixels(spec: CameraSpecs, px: torch.Tensor, py: torch.Tensor):
     """Rays through continuous film positions (px, py) -> (o, d) [..., 3]."""
@@ -136,3 +182,73 @@ def generate_rays(
     """One primary ray per pixel, row-major: (origins, directions) [H*W, 3],
     through :func:`film_coords`."""
     return rays_from_pixels(spec, *film_coords(spec, generator, jitter, device))
+
+
+_FLIP_XY = np.diag([-1.0, -1.0, 1.0, 1.0])
+
+
+class JSONCameraSpecsIO:
+    """3DGS ``cameras.json`` loader and writer, with the handedness flip."""
+
+    @staticmethod
+    def load(filename: str) -> List[CameraSpecs]:
+        with open(filename) as f:
+            sensors = json.load(f)
+        specs = []
+        for sensor in sensors:
+            to_world = np.eye(4)
+            to_world[:3, :3] = np.asarray(sensor["rotation"])
+            to_world[:3, 3] = np.asarray(sensor["position"])
+            specs.append(CameraSpecs(
+                name=sensor["img_name"], width=sensor["width"], height=sensor["height"],
+                focal_length=sensor["fx"], to_world=to_world @ _FLIP_XY,
+                near_clip=0.1, far_clip=100.0,
+            ))
+        return specs
+
+    @staticmethod
+    def write(specs: List[CameraSpecs], filename: str) -> None:
+        sensors = []
+        for i, cam in enumerate(specs):
+            to_world = cam.to_world @ _FLIP_XY
+            sensors.append({
+                "rotation": to_world[:3, :3].tolist(),
+                "position": to_world[:3, 3].tolist(),
+                "fx": cam.focal_length,
+                "fy": cam.focal_length,
+                "width": cam.width,
+                "height": cam.height,
+                "id": i,
+                "img_name": cam.name,
+            })
+        with open(filename, "w", encoding="utf-8") as f:
+            f.write(json.dumps(sensors, ensure_ascii=False))
+
+
+class KRTCameraSpecsIO:
+    """KRT JSON loader (pinhole cameras with radial and tangential
+    distortion only; K is stored transposed, the principal point in row 2)."""
+
+    @staticmethod
+    def load(filename: str, faithful: bool = True) -> List[CameraSpecs]:
+        """``faithful=True`` keeps the reference's reading of ``K[2, 1]`` for
+        both principal-point coordinates, so the width derives from the
+        point's y (wrong for non-square sensors); ``faithful=False`` reads
+        ``K[2, 0], K[2, 1]``."""
+        with open(filename) as f:
+            sensors = json.load(f)["KRT"]
+        infos = []
+        for sensor in sensors:
+            if sensor.get("distortionModel") != "RadialAndTangential":
+                continue
+            if sensor.get("projectionModel") != "Pinhole":
+                continue
+            k_mat = np.asarray(sensor["K"])
+            k1, k2, k3, k4 = list(sensor["distortion"][0])
+            px, py = (k_mat[2, 1], k_mat[2, 1]) if faithful else (k_mat[2, 0], k_mat[2, 1])
+            infos.append(CameraSpecs(
+                name=sensor["cameraId"], width=int(2 * px), height=int(2 * py),
+                to_world=np.asarray(sensor["T"]), focal_length=k_mat[0, 0],
+                k1=k1, k2=k2, k3=k3, k4=k4,
+            ))
+        return infos

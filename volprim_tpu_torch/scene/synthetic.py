@@ -5,6 +5,7 @@
   thin anisotropic splats tangent to three bumpy spheres plus a ground
   sheet on y = -1, opacities in [0.55, 0.99] and degree-1 SH (k = 4
   coefficients per channel).
+- ``orbit_cameras``: the headline camera and more on its orbit.
 - ``make_medium``: the "plume", a scattering medium of Gaussian primitives
   for the path tracer, drawn from the closed-form plume density of the JAX
   package's ``scene.vol.procedural_smoke`` (its stand-in for the missing
@@ -112,6 +113,22 @@ def make_scene(n_prims: int, seed: int = 0, device=None) -> EllipsoidScene:
         centers=t(a["centers"]), scales=t(a["scales"]), quats=t(a["quats"]),
         attrs={"opacities": t(a["opacities"]), "sh_coeffs": t(a["sh_coeffs"])},
     )
+
+
+def orbit_cameras(width: int = 512, count: int = 8, fov: float = 50.0) -> list:
+    """bench.py's headline camera (eye (0, 0.4, -3.2), looking at the
+    origin) followed by ``count - 1`` more on its orbit: the eye turned
+    about the y axis in equal steps, square films of ``width``."""
+    from .cameras import CameraSpecs, look_at
+
+    cams = []
+    for i in range(count):
+        ang = 2.0 * np.pi * i / count
+        eye = [-3.2 * np.sin(ang), 0.4, -3.2 * np.cos(ang)]
+        cams.append(CameraSpecs(name="bench" if i == 0 else f"orbit_{i:02d}", width=width,
+                                height=width, to_world=look_at(eye, [0, 0, 0], [0, 1, 0]),
+                                fov=fov))
+    return cams
 
 
 # sigma_t scale of the plume, chosen once so that the median optical depth

@@ -137,10 +137,10 @@ def main(argv=None) -> dict:
                              f"{', '.join(STAGES + ABL_STAGES)}")
     if args.feat_major:
         raise SystemExit("--feat_major is a TPU layout knob with no counterpart in the "
-                         "port (ROADMAP.md §A2)")
+                         "port (ROADMAP.md §D)")
     if args.kernel_batch != 1:
         raise SystemExit("--kernel_batch is a TPU grid knob with no counterpart in the "
-                         "port (ROADMAP.md §A2)")
+                         "port (ROADMAP.md §D)")
     if args.cpu:
         dev = torch.device("cpu")
     elif torch.cuda.is_available():

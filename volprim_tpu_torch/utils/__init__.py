@@ -1,0 +1,6 @@
+"""Image I/O, timing and small helpers (volprim_tpu.utils)."""
+
+from . import benchmark, image, misc
+from .misc import concatenate_images, time_operation
+
+__all__ = ["benchmark", "concatenate_images", "image", "misc", "time_operation"]
