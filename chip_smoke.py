@@ -5,8 +5,9 @@
 Drives volprim_tpu_torch's render path (synthetic 262,144-primitive surface
 scene -> build_state -> render_state, 512x512 film, 2 spp, the headline
 configuration of bench.py), its training step (the same scene, 1 spp,
-bench.py's train configuration, L1 loss, backward, BoundedAdam) and the
-3DGS-asset path (PLY, cameras.json, the two example CLIs), and checks
+bench.py's train configuration, L1 loss, backward, BoundedAdam), the
+3DGS-asset path (PLY, cameras.json, the two example CLIs) and the
+volume-fitting path (tomography, grid volumes, two more CLIs), and checks
 the hand-written CUDA compositor kernels on the way, in phases that each
 print one line:
 
@@ -176,11 +177,39 @@ example CLIs), on the headline scene at full width:
     from phase 8's perturbed opacities and SH: the losses must fall and
     the refined asset load back whole; each CLI's wall time.
 
+Then the volume-fitting path (models/tomography.py, models/gridvol.py, the
+optimize_volume and render_asset CLIs), plain PyTorch with no kernel of its
+own, at optimize_volume's full widths (8 ring cameras at 256x256, a 16^3
+lattice, procedural_smoke at 48^3):
+
+26. tomography_frame: the batch sensor at 1 spp through the tomography
+    integrator (2.15e9 ray-primitive pairs, sigma_t 0.5, a constant
+    emitter): median of 5 and peak memory beside the pair budget
+    _TOMO_PAIRS in force; the f32 radiance of 4,096 pixel-centre rays
+    within rtol 1e-4 / atol 1e-6 of the same function in f64; one
+    Gaussian's transmittance within 1e-3 of its closed form;
+27. tomography_step: the scattering reference (4 spp, cut from 32), then 8
+    optimize steps (cut from 64) through the CLI's own train_step
+    (render_batch, L1, backward(), BoundedAdam): median step time of steps
+    2-4 and peak memory; the loss must fall and sigma_t stay in [1e-8,
+    1e-3] (with --out, a profile of two more steps);
+28. gridvol_reference: the scattering reference (its time at 4 spp from
+    phase 27, which renders it; the device kernels and device ms of one
+    sample, from torch.profiler at bounce caps 1 and 2, each bounce being
+    the same kernels on the same shapes; the device's idle share) and the
+    furnace (a uniform grid at albedo 1, 4,096 rays, mean within 0.03 of
+    1);
+29. volume_clis: optimize_volume in a subprocess (--cam_count 8 --cam_res
+    256 --volprim_count 16 --iterations 8 --ref_spp 4), whose PSNR must
+    rise, then render_asset on its asset and on the same scene written by
+    save_reference_asset: finite images in [0, 1]; each wall time.
+
 Then the total seconds, a JSON line with each kernel's numbers, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero. There is no CPU mode: without a CUDA card it exits with an
 error. ``--out DIR`` also writes the details and torch.profiler tables of
-two tiled frames, two train steps and two path-traced frames there.
+two tiled frames, two train steps, two path-traced frames and two
+tomography steps there.
 """
 
 from __future__ import annotations
@@ -2313,6 +2342,299 @@ def cli_phase(composite3, rf_tiled, paths, scene, dev, details) -> dict:
     return res
 
 
+# ---- 26-29. the volume-fitting path: tomography, grid volumes, CLIs ---------
+
+# optimize_volume's defaults (8 ring cameras at 256^2, a 16^3 lattice), the
+# tomography frame's visible sigma_t, and the cuts: 4 reference samples (of
+# 32) and 8 steps (of 64)
+VOLUME_SIGMA_T, VOLUME_REF_SPP, VOLUME_STEPS = 0.5, 4, 8
+# the f32 frame against the same function in f64 on TOMO_F64_RAYS rays
+TOMO_F64_RAYS, TOMO_RTOL, TOMO_ATOL = 4096, 1e-4, 1e-6
+# operations a fused kernel would need: per (ray, primitive) pair of the
+# tomography forward (tomography._chunk_tau: the local frame's w and p 45,
+# a and t* 12, q_min 11, the extent test 11, the integral and its scrub 9,
+# the weighted sum 2), and per grid sample of the scattering tracer
+# (GridVolume.sample's corner indices and trilinear blend 45, a tracking
+# or marching step's own arithmetic 10); each arithmetic or transcendental
+# operation counts one
+OPS_TOMO_PAIR, OPS_GRID_SAMPLE = 90, 55
+
+
+def _generator(dev, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _scene64(scene):
+    return dataclasses.replace(scene, centers=scene.centers.double(),
+                               scales=scene.scales.double(), quats=scene.quats.double(),
+                               attrs={k: v.double() for k, v in scene.attrs.items()})
+
+
+def tomography_frame(dev, details) -> dict:
+    """Phase 26: the batch sensor through the tomography integrator at the
+    CLI's full width (8 ring cameras at 256^2, a 16^3 lattice at sigma_t
+    VOLUME_SIGMA_T, a constant emitter, 1 spp: 2.15e9 (ray, primitive)
+    pairs); the f32 radiance on TOMO_F64_RAYS pixel-centre rays against the
+    same function in f64; one Gaussian's transmittance against its closed
+    form (tests/test_analytic_golden.py:133)."""
+    from volprim_tpu_torch.examples import optimize_volume as ov
+    from volprim_tpu_torch.models import base, render_batch, tomography
+    from volprim_tpu_torch.ops.envmap import ConstantEmitter
+    from volprim_tpu_torch.scene import EllipsoidsFactory, lattice_init
+
+    cams = ov.ring_cameras(8, 256)
+    prims = lattice_init(16, init_sigmat=VOLUME_SIGMA_T, device=dev)
+    cfg = tomography.TomographyConfig(max_depth=-1)
+    em = ConstantEmitter(radiance=torch.ones(3, device=dev))
+
+    @torch.no_grad()
+    def frame(seed=0):
+        return render_batch(prims, cams, tomography.radiance, cfg, em, spp=1,
+                            generator=_generator(dev, seed))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = cuda_times(frame, reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    img = frame()
+    h, w = cams[0].height, cams[0].width
+    rays = len(cams) * h * w
+    pairs = rays * prims.num_prims
+    bytes_io = rays * (2 * 3 + 3) * 4  # the rays in, the radiance out
+    res = dict(rays=rays, primitives=prims.num_prims, pairs=pairs,
+               bound_ms=max(pairs * OPS_TOMO_PAIR / PEAK_F32, bytes_io / PEAK_BYTES) * 1e3,
+               bound_by="operations" if pairs * OPS_TOMO_PAIR / PEAK_F32
+               >= bytes_io / PEAK_BYTES else "bytes",
+               tomo_pairs=tomography._TOMO_PAIRS, frame_ms=float(np.median(times)),
+               frame_ms_all=times, peak_gib=peak / 2**30, mean=float(img.mean()),
+               partial_share=float(((img > 0.01) & (img < 0.99)).float().mean()))
+    if tuple(img.shape) != (h, len(cams) * w, 3) or not bool(torch.isfinite(img).all()):
+        fail(f"tomography_frame: the image is {tuple(img.shape)} or not finite")
+    if float(img.min()) < 0.0 or float(img.max()) > 1.0 + 1e-6:
+        fail("tomography_frame: radiance outside [0, 1] under a unit emitter")
+    # the yardstick: pixel-centre rays, every n-th of the batch, in f64
+    px = (torch.arange(w, device=dev, dtype=torch.float32)[None, :].expand(h, w).reshape(1, -1)
+          + 0.5).expand(len(cams), -1)
+    py = (torch.arange(h, device=dev, dtype=torch.float32)[:, None].expand(h, w).reshape(1, -1)
+          + 0.5).expand(len(cams), -1)
+    o, d = base.batch_rays(cams, px, py)
+    pick = torch.arange(0, rays, rays // TOMO_F64_RAYS, device=dev)
+    o, d = o[pick], d[pick]
+    with torch.no_grad():
+        got = tomography.radiance(prims, em, o, d, cfg)
+        want = tomography.radiance(_scene64(prims),
+                                   ConstantEmitter(radiance=torch.ones(3, device=dev,
+                                                                       dtype=torch.float64)),
+                                   o.double(), d.double(), cfg)
+    err = (got.double() - want).abs()
+    res.update(f64_rays=int(pick.numel()), f64_max_abs_err=float(err.max()),
+               f64_max_rel_err=float((err / want.abs().clamp(min=1e-30)).max()),
+               f64_outside=int((err > TOMO_ATOL + TOMO_RTOL * want.abs()).sum()),
+               f64_partial_rays=int(((want > 0.01) & (want < 0.99)).any(-1).sum()))
+    if res["f64_outside"]:
+        fail(f"tomography_frame: {res['f64_outside']} values outside rtol {TOMO_RTOL} / "
+             f"atol {TOMO_ATOL} of the f64 run")
+    # one Gaussian: tau = sigma_t exp(-q_min / 2) / (2 pi s^2), q_min = d^2 / s^2
+    s, sigma_t, d_perp = 0.25, 3.0, 0.1
+    f = EllipsoidsFactory()
+    f.add(mean=[0.0, 0.0, 0.0], scale=s, sigma_t=sigma_t, albedo=0.5)
+    one = f.build(device=dev)
+    with torch.no_grad():
+        tr = tomography.radiance(one, em, torch.tensor([[d_perp, 0.0, -5.0]], device=dev),
+                                 torch.tensor([[0.0, 0.0, 1.0]], device=dev),
+                                 tomography.TomographyConfig(max_depth=8))
+    tau = sigma_t * math.exp(-0.5 * d_perp ** 2 / s ** 2) / (2.0 * math.pi * s * s)
+    res["analytic_rel_err"] = abs(float(tr[0, 0]) / math.exp(-tau) - 1.0)
+    if not res["analytic_rel_err"] <= 1e-3:
+        fail(f"tomography_frame: one Gaussian's transmittance is {res['analytic_rel_err']} "
+             "from its closed form")
+    phase("tomography_frame", **res)
+    details["tomography_frame"] = res
+    return res
+
+
+def tomography_step(dev, details, out=None) -> dict:
+    """Phase 27: optimize_volume's step at its defaults (8 cameras at 256^2,
+    the 16^3 lattice, 1 spp): the scattering reference at VOLUME_REF_SPP,
+    then VOLUME_STEPS steps of render_batch + L1 + backward() +
+    BoundedAdam.step through the CLI's own functions. The loss must fall
+    and sigma_t stay in [1e-8, 1e-3]. With ``out`` two more steps are
+    profiled."""
+    from volprim_tpu_torch.examples import optimize_volume as ov
+    from volprim_tpu_torch.models import tomography
+    from volprim_tpu_torch.ops.envmap import ConstantEmitter
+    from volprim_tpu_torch.optim import BoundedAdam
+    from volprim_tpu_torch.scene import lattice_init, procedural_smoke
+
+    args = ov.parser().parse_args(["--output", os.path.join(ASSET_DIR, "volume"),
+                                   "--ref_spp", str(VOLUME_REF_SPP)])
+    cams = ov.ring_cameras(args.cam_count, args.cam_res)
+    em = ConstantEmitter(radiance=torch.ones(3, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ov.reference_image(procedural_smoke(device=dev), cams, args, em, dev)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    prims = lattice_init(args.volprim_count, args.init_sigmat, args.init_albedo, device=dev)
+    cfg = tomography.TomographyConfig(max_depth=args.max_depth, kernel_type=args.kernel)
+    opt = ov.make_optimizer(args)
+    params = ov.volume_params(prims)
+    torch.cuda.reset_peak_memory_stats()
+    losses, psnrs, times = [], [], []
+    for it in range(VOLUME_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, psnr, _ = ov.train_step(params, opt, cams, cfg, em, ref, args, it, prims.extent)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        psnrs.append(psnr)
+    peak = torch.cuda.max_memory_allocated()
+    sig = params["sigmat"].detach()
+    res = dict(ref_spp=VOLUME_REF_SPP, ref_spp_cut_from=32, steps=VOLUME_STEPS,
+               steps_cut_from=64, reference_s=ref_s, step_ms=float(np.median(times[1:4])),
+               step_ms_all=times, peak_gib=peak / 2**30, tomo_pairs=tomography._TOMO_PAIRS,
+               pairs_per_step=args.cam_count * args.cam_res ** 2 * prims.num_prims,
+               losses=losses, psnrs=psnrs, sigmat_min=float(sig.min()),
+               sigmat_max=float(sig.max()))
+    if not losses[-1] < losses[0]:
+        fail(f"tomography_step: the loss did not fall over {VOLUME_STEPS} steps: {losses}")
+    if not (float(sig.min()) >= np.float32(1e-8) and float(sig.max()) <= np.float32(1e-3)):
+        fail(f"tomography_step: sigma_t left [1e-8, 1e-3]: {res['sigmat_min']}, "
+             f"{res['sigmat_max']}")
+    if out:
+        busy_ms, split = device_profile(
+            lambda i: ov.train_step(params, opt, cams, cfg, em, ref, args, 100 + i,
+                                    prims.extent),
+            out, "chip_smoke_tomography_profile.txt",
+            stages={tomography: ("_chunk_tau", "_row_sum"), BoundedAdam: ("step",)})
+        res.update(device_busy_ms_per_step=busy_ms, device_idle_share=1.0 - busy_ms
+                   / res["step_ms"], device_ms_by_stage=split)
+    phase("tomography_step", **res)
+    details["tomography_step"] = res
+    return res
+
+
+def gridvol_reference(dev, details) -> dict:
+    """Phase 28: the scattering reference of optimize_volume at full width
+    (procedural_smoke, 48^3; 8 cameras at 256^2; VOLUME_REF_SPP samples, cut
+    from 32): its time from phase 27, which rendered it, and the device
+    kernels and device ms of one sample; then the furnace: a uniform
+    grid at albedo 1 under a unit emitter returns it, mean within 0.03 of 1
+    on 4096 rays (tests/test_tomography.py's
+    test_gridvol_scattering_furnace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from volprim_tpu_torch.examples import optimize_volume as ov
+    from volprim_tpu_torch.models import gridvol, render_batch
+    from volprim_tpu_torch.ops.envmap import ConstantEmitter
+    from volprim_tpu_torch.scene import GridVolume, procedural_smoke
+
+    em = ConstantEmitter(radiance=torch.ones(3, device=dev))
+    cams = ov.ring_cameras(8, 256)
+    grid = procedural_smoke(device=dev)
+    ref_s = details["tomography_step"]["reference_s"]
+    res = dict(grid=list(grid.resolution), ref_spp=VOLUME_REF_SPP, ref_spp_cut_from=32,
+               ms=ref_s * 1e3, ms_per_spp=ref_s * 1e3 / VOLUME_REF_SPP)
+    gcfg = gridvol.GridVolumeConfig()
+    # grid samples of one spp: every bounce runs its tracking and marching
+    # steps in full (no early exit)
+    samples = 8 * 256 * 256 * gcfg.bounce_cap * (gcfg.tracking_steps + gcfg.shadow_steps)
+    res.update(samples_1spp=samples, bound_ms_1spp=samples * OPS_GRID_SAMPLE / PEAK_F32 * 1e3)
+    # the kernels of one sample: profiles at bounce caps 1 and 2 (the host's
+    # rows left out: ~10^6 ops a sample cost minutes to record), whose
+    # difference is one bounce; every bounce launches the same kernels on
+    # the same shapes (no early exit), so a sample at the cap launches
+    # n(1) + (cap - 1) (n(2) - n(1))
+    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
+    counts, dev_ms = [], []
+    t0 = time.perf_counter()
+    for cap in (1, 2):
+        pcfg = dataclasses.replace(gcfg, bounce_cap=cap)
+        with profile(activities=acts) as prof, torch.no_grad():
+            img = render_batch(gridvol.transform_grid(grid, pcfg), cams,
+                                  gridvol.radiance_scattering, pcfg, em, spp=1,
+                                  generator=_generator(dev, 0))
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts.append(int(sum(e.count for e in rows)))
+        dev_ms.append(sum(e.self_device_time_total for e in rows) / 1e3)
+    cap = gcfg.bounce_cap
+    res.update(launches_cap1_cap2=counts, device_ms_cap1_cap2=dev_ms,
+               launches_1spp=counts[0] + (cap - 1) * (counts[1] - counts[0]),
+               device_ms_1spp=dev_ms[0] + (cap - 1) * (dev_ms[1] - dev_ms[0]),
+               profiled_s=time.perf_counter() - t0)
+    res["device_idle_share"] = 1.0 - res["device_ms_1spp"] / res["ms_per_spp"]
+    if not bool(torch.isfinite(img).all()):
+        fail("gridvol_reference: the two-bounce reference is not finite")
+    # the furnace
+    flat = GridVolume(torch.full((8, 8, 8, 1), 0.8, device=dev),
+                      torch.full((3,), -1.0, device=dev), torch.full((3,), 1.0, device=dev))
+    fcfg = gridvol.GridVolumeConfig(sigma_scale=3.0, albedo=1.0, bounce_cap=64,
+                                    tracking_steps=64, shadow_steps=64)
+    n = 4096
+    o = torch.tensor([[0.0, 0.0, -3.0]], device=dev).repeat(n, 1)
+    d = torch.tensor([[0.0, 0.0, 1.0]], device=dev).repeat(n, 1)
+    with torch.no_grad():
+        fl = gridvol.radiance_scattering(flat, em, o, d, fcfg, _generator(dev, 0))
+    res["furnace_mean"] = float(fl[:, 0].mean())
+    if not bool(torch.isfinite(fl).all()) or abs(res["furnace_mean"] - 1.0) >= 0.03:
+        fail(f"gridvol_reference: the furnace's mean is {res['furnace_mean']}")
+    phase("gridvol_reference", **res)
+    details["gridvol_reference"] = res
+    return res
+
+
+def volume_clis(dev, details) -> dict:
+    """Phase 29: optimize_volume at full widths (--cam_count 8 --cam_res 256
+    --volprim_count 16; --iterations 8 and --ref_spp 4, cut from 64 / 32) in
+    a subprocess, its PSNR must rise; then render_asset on the asset it
+    wrote, and on the same scene written by save_reference_asset: finite
+    images in [0, 1]; each wall time."""
+    from volprim_tpu_torch.ops.envmap import ConstantEmitter
+    from volprim_tpu_torch.scene import asset_interop, load_asset
+    from volprim_tpu_torch.utils.image import read_exr
+
+    out = os.path.join(ASSET_DIR, "volume_cli")
+    res = {}
+    torch.cuda.empty_cache()  # the subprocesses need the card's memory
+    wall, stdout = _run_cli("optimize_volume", [
+        "--output", out, "--cam_count", "8", "--cam_res", "256", "--volprim_count", "16",
+        "--iterations", str(VOLUME_STEPS), "--ref_spp", str(VOLUME_REF_SPP)])
+    psnrs = [float(m) for m in re.findall(r"\| psnr=([0-9.eE+-]+)", stdout)]
+    with open(os.path.join(out, "curves.json")) as f:
+        curves = json.load(f)
+    res["optimize_volume"] = dict(wall_s=wall, psnrs=psnrs, losses=curves["loss"],
+                                  iterations_cut_from=64, ref_spp_cut_from=32)
+    if len(psnrs) != VOLUME_STEPS or not psnrs[-1] > psnrs[0]:
+        fail(f"volume_clis: optimize_volume's PSNR did not rise: {psnrs}")
+    asset_dir = os.path.join(out, "optimized_asset")
+    asset = load_asset(asset_dir, device=dev)
+    ref_dir = os.path.join(out, "reference_asset")
+    asset_interop.save_reference_asset(ref_dir, asset["primitives"], asset["cameras"],
+                                       ConstantEmitter(radiance=torch.ones(3, device=dev)))
+    imgs = {}
+    for name, src in (("render_asset", asset_dir), ("render_asset_reference", ref_dir)):
+        exr = os.path.join(out, f"{name}.exr")
+        wall, _ = _run_cli("render_asset", [src, "--output", exr, "--spp", "4"])
+        img = read_exr(exr)
+        imgs[name] = img
+        res[name] = dict(wall_s=wall, shape=list(img.shape), mean=float(img.mean()))
+        cam = asset["cameras"][0]
+        if (img.shape != (cam.height, cam.width, 3) or not np.isfinite(img).all()
+                or img.min() < 0.0
+                or img.max() > 1.0 + 1e-6):
+            fail(f"volume_clis: {name}'s image is {img.shape}, not finite or outside [0, 1]")
+    res["formats_max_abs_diff"] = float(np.abs(imgs["render_asset"]
+                                               - imgs["render_asset_reference"]).max())
+    phase("volume_clis", **res)
+    details["volume_clis"] = res
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="directory for details and a profiler table")
@@ -2865,6 +3187,12 @@ def main() -> None:
     xla_train_step(rf_tiled, camera, dev, details)
     emitter_check(composite3, rf_tiled, scene, camera, details)
     cli = cli_phase(composite3, rf_tiled, paths, scene, dev, details)
+
+    # ---- 26-29. the volume-fitting path (no kernel of its own) ------------
+    tomography_frame(dev, details)
+    tomography_step(dev, details, args.out)
+    gridvol_reference(dev, details)
+    volume_clis(dev, details)
 
     if args.out:
         busy_ms, split = device_profile(

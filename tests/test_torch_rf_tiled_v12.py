@@ -17,11 +17,14 @@ tile_group), jitter off.
 Where f32 rounding at a hit edge or in the cancelling q = c - b^2 / a
 moves the two packages apart by more than that (a silhouette pixel
 whose edge primitive one package hits and the other misses; the centers'
-gradient), the port is instead held to twice the JAX package's own
-deviation from an f64 run of the port (the same scene in f64 through
-build_state, its cull geometry cast to f32, which the cull takes; the
-test checks that the f64 run composites the same slots), as ROADMAP.md §C
-records.
+gradient), the yardstick is JAX in f64 on the f32 frame's shortlists: its
+plain route (backend 'xla', the v1 / v2 compositors' function without
+Pallas) with its feature tables lifted to f64
+(test_torch_rf_tiled_xla.jax_render64, and its jax.grad for the
+gradients). The port's v1 / v2 route in f64 (the same shortlists) lies
+within 1e-5 of its frames and 1e-4 of each gradient's maximum in every
+case, and the port's f32 deviation from it is at most twice JAX's, as
+ROADMAP.md §C records.
 """
 
 import dataclasses
@@ -42,10 +45,13 @@ from volprim_tpu_torch import interop, train
 from volprim_tpu_torch.kernels import composite2 as tcomp2
 from volprim_tpu_torch.kernels import composite_vjp as tvjp
 from volprim_tpu_torch.models import rf_tiled as trt
+from volprim_tpu_torch.ops import quadric as tquadric
+from volprim_tpu_torch.ops import sh as tsh
 from volprim_tpu_torch.scene.ellipsoids import EllipsoidScene
 
 from test_rf_tiled import surface_scene as _make_scene
 from test_torch_rf_tiled import _cameras, _port_scene
+from test_torch_rf_tiled_xla import jax_render64, jax_scene64, jax_state64, jax_xla64
 
 FRAME = dict(max_depth=64, srgb_primitives=False, tile_pixels=256, max_candidates=512,
              segment=128, use_clusters=True, cluster_size=32)
@@ -111,22 +117,50 @@ def _scene64(s, params=None):
 
 
 def _render64(scene64, cam, cfg):
-    """The f64 yardstick: build_state in f64, the cull geometry cast to f32."""
+    """The port's f64 run: build_state in f64, the cull geometry cast to f32
+    (the f32 frame's shortlists), and the f32 rays' features and SH basis
+    formed in f64, as JAX's f64 route forms them from f64 rays (q cancels
+    their f32 rounding too)."""
     st = trt.build_state(scene64, cfg)
     st = dataclasses.replace(st, **{k: getattr(st, k).float() for k in (
         "cull_centers", "cull_radii", "sup_centers", "sup_radii", "suprows")})
-    return trt.render_state(st, cam, cfg, spp=1, jitter=False)
+    with pytest.MonkeyPatch.context() as mp:
+        features, basis = tquadric.ray_features, tsh.eval_basis
+        mp.setattr(tquadric, "ray_features", lambda o, d: features(o.double(), d.double()))
+        mp.setattr(tsh, "eval_basis", lambda d, degree: basis(d.double(), degree))
+        return trt.render_state(st, cam, cfg, spp=1, jitter=False)
 
 
-def _close_or_within_jax(got, want, yard, tol, what):
-    """|got - want| <= tol, or else got deviates from the f64 ``yard`` by
-    at most twice what JAX's ``want`` does (all three normalised alike)."""
+def _close_or_within_jax(got, want, got64, want64, tol, tol64, what):
+    """The port in f64 (``got64``) within ``tol64`` of JAX in f64
+    (``want64``), always; |got - want| <= tol, or else got deviates from
+    JAX in f64 by at most twice what JAX's ``want`` does (all normalised
+    alike)."""
+    err64 = np.abs(got64 - want64).max()
+    assert err64 <= tol64, f"{what}: port f64 - JAX f64 {err64:.3g} > {tol64:.3g}"
     err = np.abs(got - want).max()
     if err <= tol:
         return
-    port, jax_ = np.abs(got - yard).max(), np.abs(want - yard).max()
-    print(f"{what}: port-JAX {err:.3g} > {tol:.3g}; from f64: port {port:.3g}, JAX {jax_:.3g}")
+    port, jax_ = np.abs(got - want64).max(), np.abs(want - want64).max()
+    print(f"{what}: port-JAX {err:.3g} > {tol:.3g}; from JAX f64: port {port:.3g}, "
+          f"JAX {jax_:.3g}; f64 port-JAX {err64:.3g}")
     assert port <= 2.0 * jax_, what
+
+
+def _jax_grads64(s, cam_j, kw, arrays):
+    """jax.grad of the mean squared frame through JAX's plain route in f64
+    on the f32 frame's shortlists (the yardstick of the gradients)."""
+    cfg_j = jrt.RFTiledConfig(**dict(kw, backend="xla"))
+
+    def loss(p):
+        with jax_xla64():
+            img = jrt.render_state(jax_state64(jax_scene64(s, p), cfg_j), cam_j, cfg_j, None,
+                                   spp=1, seed=0, jitter=False)
+        return jnp.mean(img ** 2)
+
+    with jax.enable_x64(True):
+        g = jax.grad(loss)({k: jnp.asarray(v, jnp.float64) for k, v in arrays.items()})
+        return {k: np.asarray(v) for k, v in g.items()}
 
 
 @pytest.mark.parametrize(
@@ -184,13 +218,14 @@ def test_gradients_match_jax(backend, tol):
     p64 = {k: torch.tensor(np.asarray(v), dtype=torch.float64, requires_grad=True)
            for k, v in arrays.items()}
     torch.mean(_render64(_scene64(s, p64), cam_t, cfg) ** 2).backward()
+    g_j64 = _jax_grads64(s, cam_j, GRAD, arrays)
     for k in keys:
         a, b = np.asarray(g_j[k]), params[k].grad.numpy()
         assert np.isfinite(b).all() and np.abs(a).max() > 0, k
         scale = np.abs(a).max()
         print(f"{backend} {k}: max diff / max |g| {np.abs(b - a).max() / scale:.3g}")
-        _close_or_within_jax(b / scale, a / scale, p64[k].grad.numpy() / scale, tol,
-                             f"{backend} {k}")
+        _close_or_within_jax(b / scale, a / scale, p64[k].grad.numpy() / scale,
+                             g_j64[k] / scale, tol, 1e-4, f"{backend} {k}")
 
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas2"])
@@ -207,6 +242,28 @@ def test_small_scene_segment_padding(backend):
                        jitter=False).numpy()
     assert np.isfinite(img_t).all() and img_t.max() > 0
     img_64 = _render64(_scene64(s), cam_t, trt.RFTiledConfig(**cfg)).numpy()
+    img_j64 = jax_render64(s, cam_j, dict(cfg, backend="xla"))
     # the images' tolerance, rtol 1e-3 / atol 2e-3, as one bound on |diff|
     tol = 2e-3 + 1e-3 * np.abs(img_j).max()
-    _close_or_within_jax(img_t, img_j, img_64, tol, f"{backend} image")
+    _close_or_within_jax(img_t, img_j, img_64, img_j64, tol, 1e-5, f"{backend} image")
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas2"])
+def test_binding_cap_matches_jax(backend):
+    """max_depth 4 binds on the frame's rays (the other cases' caps do not):
+    the image within the frames' tolerance of JAX's, the port in f64
+    within 1e-5 of JAX's plain route in f64."""
+    s = surface_scene(1600, seed=3)
+    cam_j, cam_t = _cameras(32, 32)
+    cfg = dict(FRAME, max_depth=4, backend=backend)
+    img_j = np.asarray(jrt.render(s, cam_j, jrt.RFTiledConfig(**cfg), None, spp=1, seed=0,
+                                  jitter=False))
+    img_t = trt.render(_port_scene(s), cam_t, trt.RFTiledConfig(**cfg), spp=1, seed=0,
+                       jitter=False).numpy()
+    full = trt.render(_port_scene(s), cam_t, trt.RFTiledConfig(**dict(cfg, max_depth=64)),
+                      spp=1, seed=0, jitter=False).numpy()
+    assert np.abs(full - img_t).max() > 0.05  # the cap binds
+    img_64 = _render64(_scene64(s), cam_t, trt.RFTiledConfig(**cfg)).numpy()
+    img_j64 = jax_render64(s, cam_j, dict(cfg, backend="xla"))
+    tol = 2e-3 + 1e-3 * np.abs(img_j).max()
+    _close_or_within_jax(img_t, img_j, img_64, img_j64, tol, 1e-5, f"{backend} cap 4")

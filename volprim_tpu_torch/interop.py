@@ -1,5 +1,5 @@
-"""Carry a scene, or the training parameters, across between the JAX
-package and the port as numpy.
+"""Carry a scene, a grid volume or the training parameters across between
+the JAX package and the port as numpy.
 
 Both packages then compute on the same parameters:
 
@@ -49,17 +49,20 @@ def to_numpy(scene: EllipsoidScene) -> dict:
 
 
 TRAIN_KEYS = ("centers", "scales", "quats", "opacities", "sh_coeffs")
+# the volume-fitting parameters (examples/optimize_volume.py)
+VOLUME_KEYS = ("sigmat", "albedo")
 
 
 def params_from_jax(arrays: dict, device=None) -> dict:
     """The training parameter dict (any of centers, scales, quats,
-    opacities, sh_coeffs) from numpy arrays, e.g. ``{k: np.asarray(v)}`` of
-    the JAX package's parameters: float32 leaf tensors that require grad,
-    on ``device`` (the card unless the caller asks for the CPU)."""
+    opacities, sh_coeffs, and the volume fit's sigmat, albedo) from numpy
+    arrays, e.g. ``{k: np.asarray(v)}`` of the JAX package's parameters:
+    float32 leaf tensors that require grad, on ``device`` (the card unless
+    the caller asks for the CPU)."""
     from . import as_device
 
     dev = as_device(device)
-    unknown = set(arrays) - set(TRAIN_KEYS)
+    unknown = set(arrays) - set(TRAIN_KEYS) - set(VOLUME_KEYS)
     if unknown:
         raise KeyError(f"not training parameters: {sorted(unknown)}")
     return {
@@ -71,3 +74,12 @@ def params_from_jax(arrays: dict, device=None) -> dict:
 def params_to_numpy(params: dict) -> dict:
     """The inverse of :func:`params_from_jax`: ``{key: numpy array}``."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def grid_from_arrays(data, bbox_min, bbox_max, device=None):
+    """The port's GridVolume from float32 numpy arrays (``data`` [zres,
+    yres, xres, C], the bbox corners [3]), on ``device`` (the card unless
+    the caller asks for the CPU)."""
+    from .scene.vol import GridVolume
+
+    return GridVolume.from_arrays(data, bbox_min, bbox_max, device)

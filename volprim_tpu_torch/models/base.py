@@ -160,3 +160,69 @@ def render_batch(
                                      n * w, h)
         film = Film(film.img + img, film.wgt + wgt)
     return film.develop()
+
+
+class _SppGrad(torch.autograd.Function):
+    """The image of ``run(scene, spp)`` whose VJP is that of
+    ``run(scene, spp_grad)``; the scene is rebuilt from its flat tensors."""
+
+    @staticmethod
+    def forward(ctx, run, rebuild, spp, spp_grad, *tensors):
+        ctx.run, ctx.rebuild, ctx.spp_grad = run, rebuild, spp_grad
+        ctx.save_for_backward(*tensors)
+        with torch.no_grad():
+            return run(rebuild(tensors), spp)
+
+    @staticmethod
+    def backward(ctx, grad_img):
+        tensors = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(tensors, ctx.needs_input_grad[4:])]
+        wanted = [t for t in leaves if t.requires_grad]
+        with torch.enable_grad():
+            img = ctx.run(ctx.rebuild(leaves), ctx.spp_grad)
+            grads = iter(torch.autograd.grad(img, wanted, grad_img, allow_unused=True))
+        return (None, None, None, None) + tuple(
+            next(grads) if t.requires_grad else None for t in leaves)
+
+
+def render_with_spp_grad(
+    camera,
+    radiance_fn: Callable[..., torch.Tensor],
+    cfg: Any,
+    emitter=None,
+    spp: int = 8,
+    spp_grad: int = 1,
+    seed: int = 0,
+    rfilter: str = "box",
+    mesh=None,
+):
+    """A primal / adjoint split of the sample count (``mi.render(...,
+    spp, spp_grad)``): returns ``f(primitives) -> [H, W, 3]`` whose forward
+    renders ``spp`` samples and whose VJP re-renders ``spp_grad`` samples
+    and takes that render's VJP. Each render draws from a fresh
+    ``torch.Generator`` on the primitives' device seeded with ``seed``, so
+    ``spp_grad == spp`` gives plain autograd's gradients. ``camera`` may be
+    a list of same-size cameras (:func:`render_batch`)."""
+    batch = isinstance(camera, (list, tuple))
+
+    def run(prims: EllipsoidScene, n: int) -> torch.Tensor:
+        gen = torch.Generator(device=prims.device)
+        gen.manual_seed(seed)
+        if batch:
+            return render_batch(prims, camera, radiance_fn, cfg, emitter, spp=n, generator=gen,
+                                rfilter=rfilter, mesh=mesh)
+        return render(prims, camera, radiance_fn, cfg, emitter, spp=n, generator=gen,
+                      rfilter=rfilter, mesh=mesh)
+
+    def f(prims: EllipsoidScene) -> torch.Tensor:
+        keys = list(prims.attrs)
+
+        def rebuild(t):
+            return EllipsoidScene(centers=t[0], scales=t[1], quats=t[2],
+                                  attrs=dict(zip(keys, t[3:])), extent=prims.extent)
+
+        return _SppGrad.apply(run, rebuild, spp, spp_grad, prims.centers, prims.scales,
+                              prims.quats, *(prims.attrs[k] for k in keys))
+
+    return f

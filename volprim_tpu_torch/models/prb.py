@@ -51,6 +51,7 @@ from ..ops import kernels as kernel_ops
 from ..ops import quadric
 from ..ops.kernels import Kernel
 from ..scene.ellipsoids import EllipsoidScene
+from . import register_integrator
 from .base import pad_primitives
 
 _BIG_T = 1e7  # effective infinity for shadow-ray segment integrals
@@ -618,6 +619,7 @@ def _bounce(primitives, emitter, cfg, cfg_b, i, o, d, beta, l_acc, prev_pdf, gen
     return o, d, beta, l_acc, prev_pdf, active
 
 
+@register_integrator("volprim_prb")
 def radiance(
     primitives: EllipsoidScene,
     emitter,

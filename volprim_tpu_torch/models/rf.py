@@ -19,6 +19,7 @@ import torch
 from ..ops import quadric, sh, srgb_to_linear
 from ..ops.kernels import Kernel
 from ..scene.ellipsoids import EllipsoidScene
+from . import register_integrator
 from .base import pad_primitives
 
 
@@ -90,6 +91,7 @@ def gather_hits(
     return best_t, best_id
 
 
+@register_integrator("volprim_rf")
 def radiance(
     primitives: EllipsoidScene,
     emitter,

@@ -45,6 +45,22 @@ def look_at(origin, target, up) -> np.ndarray:
     return m
 
 
+def rotate_x(deg: float) -> np.ndarray:
+    """4x4 rotation by ``deg`` degrees about the x axis."""
+    c, s = np.cos(np.deg2rad(deg)), np.sin(np.deg2rad(deg))
+    m = np.eye(4)
+    m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, -s, s, c
+    return m
+
+
+def rotate_y(deg: float) -> np.ndarray:
+    """4x4 rotation by ``deg`` degrees about the y axis."""
+    c, s = np.cos(np.deg2rad(deg)), np.sin(np.deg2rad(deg))
+    m = np.eye(4)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, s, -s, c
+    return m
+
+
 @dataclasses.dataclass
 class CameraSpecs:
     """Pinhole camera; ``cx, cy`` are principal-point offsets in pixels (the
