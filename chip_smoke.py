@@ -204,7 +204,44 @@ lattice, procedural_smoke at 48^3):
     rise, then render_asset on its asset and on the same scene written by
     save_reference_asset: finite images in [0, 1]; each wall time.
 
-Then the total seconds, a JSON line with each kernel's numbers, the card's
+Then the rest of the path tracer (the xla window walk, the sequential walk
+with its re-collection rounds, cluster collection, coeff_gemm, the
+Epanechnikov kernel, triangle-mesh surfaces with BSDFs, the render_volume
+CLI), on phase 10's plume, camera and sky; the pallas runs' walk launches
+go through csrc/ffwalk.cu on tables no earlier phase gives it:
+
+30. prb_xla_frame: phase 10's frame through walk_backend="xla": median of
+    3, peak memory, the mean radiance within 4 standard errors of phase
+    10's frame; bounce 0 per ray: free_flight on the 262,144 camera rays
+    with one xi under both backends, the rays that decide differently at
+    most WALK_DIFF_SHARE of them;
+31. prb_budgets and prb_walk_path (one line a path): count_intervals on
+    the camera rays (percentiles of the need) and suggest_budgets' config;
+    under that config the frame on the jump path (pallas), with jump=False
+    and with use_clusters, each under both backends, with coeff_gemm
+    (pallas) and with the Epanechnikov kernel (xla): each pallas run's walk
+    launches recorded and replayed against the plain version (the
+    sequential walk's windows from t = 0, the cluster tables' budgets),
+    their launches and walk_work (the xla paths at XLA_SEQ_WIDTH^2, one
+    frame: 49-63 s at 512^2 on an H100 80GB HBM3 at 700 W); each frame's
+    time, mean, bounce-0 dead
+    share and distance from the jump frame's mean in standard errors;
+    prb_walk_twins: the paths that kill the same rays (TWIN_PATHS) held to
+    each other, means within 4 standard errors and (the fused pairs)
+    bounce 0 per ray;
+32. prb_surfaces: the plume in a Cornell box (box_mesh: Principled walls,
+    the left one left out) at 512^2, 1 spp, pallas: its walk launches, with
+    finite surface caps, replayed; the frame's time; the white furnace
+    (a 512-primitive plume inert over a white diffuse floor under a unit
+    sky) within 4 standard errors of 1;
+33. render_volume_cli: the CLI in a subprocess at 512^2, RV_SPP spp (cut
+    from 64), with --walk_backend xla --auto_budget and with
+    --walk_backend pallas: finite EXRs whose means lie within 4 standard
+    errors of each other; each wall time.
+
+Then the total seconds, a JSON line with each kernel's numbers (the walk's
+with its launches, kernel ms and bound on the sequential, cluster,
+coeff_gemm and surface-capped paths), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero. There is no CPU mode: without a CUDA card it exits with an
 error. ``--out DIR`` also writes the details and torch.profiler tables of
@@ -2635,6 +2672,417 @@ def volume_clis(dev, details) -> dict:
     return res
 
 
+# ---- the rest of the path tracer (phases 30-33) -----------------------------
+
+PRB_SEQ_CHUNK = 65536  # rays per free_flight call in phase 30 (prb's ray_chunk)
+XLA_SEQ_WIDTH = 256  # phase 31's film for the xla walk's sequential paths
+# render_volume's --spp and film in phase 33 (the spp cut from the CLI's 64)
+RV_SPP, RV_WIDTH = 4, 512
+
+
+def frame_stats(img) -> dict:
+    """Per-channel mean of a 1-spp frame and its standard error over the
+    pixels (each pixel one path: the scene's variation counts as noise)."""
+    x = img.reshape(-1, 3).double()
+    return dict(mean=x.mean(0), se=x.std(0) / math.sqrt(x.shape[0]))
+
+
+def means_agree(a: dict, b: dict) -> tuple:
+    """(whether each channel's means lie within 4 standard errors of their
+    difference, the largest |difference| / standard error)."""
+    se = torch.sqrt(a["se"] ** 2 + b["se"] ** 2)
+    z = torch.abs(a["mean"] - b["mean"]) / torch.clamp(se, min=1e-30)
+    return bool((z <= 4.0).all()), float(z.max())
+
+
+def recording_walks(ffwalk, fn):
+    """fn() with every launch of the walk kernel recorded, its count set to
+    0 just before and read just after. Returns (fn's result, launches,
+    [(args, kwargs)] of each launch)."""
+    launch = ffwalk._launch
+    rec = []
+
+    def hook(*a, **k):
+        rec.append((a, k))
+        return launch(*a, **k)
+
+    ffwalk._launch = hook
+    ffwalk.walk.launches = 0
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        n = ffwalk.walk.launches
+        ffwalk._launch = launch
+    return out, n, rec
+
+
+def replay_walks(ffwalk, rec, name: str) -> list:
+    """Every recorded walk launch replayed through ffwalk.walk against the
+    plain version on its own inputs (compare_walk), its kernel time
+    (launch_ms) and the work its inputs need (walk_work); the plain
+    version's time on the path's largest launch only (one run of it costs
+    ~0.1-0.3 s at 65,536 rays)."""
+    rows = []
+    largest = max(range(len(rec)), key=lambda i: rec[i][0][0].shape[0]) if rec else -1
+    for i, (a, k) in enumerate(rec):
+        n0 = ffwalk.walk.launches
+        got = ffwalk.walk(*a, **k)
+        wk = {}
+        want = ffwalk.walk_reference(*a, **k, work=wk)
+        torch.cuda.synchronize()
+        if ffwalk.walk.launches != n0 + 1:
+            fail(f"{name}: ffwalk.walk did not launch its kernel once on a replayed launch")
+        row = dict(rays=int(a[0].shape[0]), kp=int(a[0].shape[1]),
+                   finite_caps=int(torch.isfinite(a[7]).sum()),
+                   finite_budgets=int(torch.isfinite(a[6]).sum()),
+                   started_past_0=int((a[9] > 0).sum()),
+                   **compare_walk(got, want, int(a[8].sum())),
+                   ms=launch_ms(lambda: ffwalk._launch(*a, **k), 3),
+                   plain_ms=(cuda_ms(lambda: ffwalk.walk_reference(*a, **k), 1, warmup=0)
+                             if i == largest else None),
+                   **walk_work(a, k, wk))
+        rows.append(row)
+    bad = [r_ for r_ in rows if not r_["ok"]]
+    if bad:
+        fail(f"{name}: the walk kernel disagrees with its plain version on {len(bad)} of "
+             f"{len(rows)} launches")
+    return rows
+
+
+def walk_totals(rows) -> dict:
+    """A path's walk launches summed: kernel ms, bound, bytes, rays; the
+    plain version's ms on its largest launch against the kernel's there."""
+    big = [r_ for r_ in rows if r_["plain_ms"] is not None]
+    bound = sum(r_["bound_ms"] for r_ in rows)
+    bound_bytes = sum(r_["bound_ms"] for r_ in rows if r_["bound_by"] == "bytes")
+    return dict(
+        launches=len(rows), ms=sum(r_["ms"] for r_ in rows), bound_ms=bound,
+        bound_by="bytes" if bound_bytes >= bound / 2 else "operations",
+        bytes=sum(r_["bytes"] for r_ in rows), rays=sum(r_["rays"] for r_ in rows),
+        rays_differ=sum(r_["decisions_differ"] + r_["t_outside_tol"] for r_ in rows),
+        max_abs_dt=max([r_["max_abs_dt"] for r_ in rows] + [0.0]),
+        finite_caps=sum(r_["finite_caps"] for r_ in rows),
+        started_past_0=sum(r_["started_past_0"] for r_ in rows),
+        windows=sum(r_["work"].get("windows", 0) for r_ in rows),
+        largest_launch_ms=big[0]["ms"] if big else None,
+        largest_launch_plain_ms=big[0]["plain_ms"] if big else None,
+    )
+
+
+def prb_xla_frame(medium, pcam, po, pd, sky, jump_stats, dev, details) -> dict:
+    """Phase 30: phase 10's frame through walk_backend="xla": a warm-up and
+    3 timed frames (median), peak memory, the mean radiance within 4
+    standard errors of phase 10's pallas frame; then bounce 0 per ray:
+    free_flight on the 262,144 camera rays with one xi under both backends,
+    in PRB_SEQ_CHUNK-ray calls, the rays whose found / dead differ or whose
+    t_samp differ by more than WALK_ATOL + WALK_RTOL |t| at most
+    WALK_DIFF_SHARE of them."""
+    from volprim_tpu_torch.models import prb, render
+
+    cfg = prb.PRBConfig(walk_backend="xla")
+    seeds = iter(range(800, 900))
+
+    def frame():
+        return render(medium, pcam, prb.radiance, cfg, sky, 1,
+                      torch.Generator(device=dev).manual_seed(next(seeds)))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    img = frame()
+    times = cuda_times(frame, 3, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(img).all()):
+        fail("prb_xla_frame: the xla frame is not finite")
+    st = frame_stats(img)
+    agree, z = means_agree(st, jump_stats)
+    # bounce 0, per ray
+    xi = 1e-7 + (1.0 - 1e-7) * torch.rand(po.shape[0], generator=torch.Generator(
+        device=dev).manual_seed(30), device=dev)
+    outs = {}
+    for backend in ("xla", "pallas"):
+        c = prb.PRBConfig(walk_backend=backend)
+        parts = [prb.free_flight(medium, po[s:s + PRB_SEQ_CHUNK], pd[s:s + PRB_SEQ_CHUNK],
+                                 xi[s:s + PRB_SEQ_CHUNK], c,
+                                 torch.ones_like(xi[s:s + PRB_SEQ_CHUNK], dtype=torch.bool))
+                 for s in range(0, po.shape[0], PRB_SEQ_CHUNK)]
+        outs[backend] = [torch.cat([p_[i] for p_ in parts]) for i in range(3)]
+    fx, fp = outs["xla"], outs["pallas"]
+    differ = (fx[0] != fp[0]) | (fx[1] != fp[1])
+    both = fx[0] & fp[0]
+    dt = torch.abs(fx[2] - fp[2])[both]
+    outside = dt > WALK_ATOL + WALK_RTOL * torch.abs(fp[2][both])
+    n_bad = int(differ.sum()) + int(outside.sum())
+    res = dict(frame_ms=float(np.median(times)), frame_ms_min=times[0],
+               frame_ms_max=times[-1], peak_mem_gib=peak,
+               mean_radiance=[float(x) for x in st["mean"]],
+               jump_frame_mean=[float(x) for x in jump_stats["mean"]], max_z=z,
+               bounce0_rays=int(po.shape[0]), bounce0_found=int(fp[0].sum()),
+               bounce0_dead=int(fp[1].sum()), bounce0_rays_differ=n_bad,
+               bounce0_max_abs_dt=float(dt.max()) if dt.numel() else 0.0)
+    phase("prb_xla_frame", **res)
+    details["prb_xla_frame"] = dict(res, times=times)
+    if not agree:
+        fail(f"prb_xla_frame: mean radiance {res['mean_radiance']} vs the pallas frame's "
+             f"{res['jump_frame_mean']} ({z:.2f} standard errors)")
+    if n_bad > WALK_DIFF_SHARE * po.shape[0]:
+        fail(f"prb_xla_frame: bounce 0's walks differ between the backends on {n_bad} rays")
+    return res
+
+
+def bounce0_flights(prb, medium, po, pd, xi, cfg) -> list:
+    """free_flight's (found, dead, t_samp) on the camera rays, in
+    PRB_SEQ_CHUNK-ray calls."""
+    parts = [prb.free_flight(medium, po[s:s + PRB_SEQ_CHUNK], pd[s:s + PRB_SEQ_CHUNK],
+                             xi[s:s + PRB_SEQ_CHUNK], cfg,
+                             torch.ones_like(xi[s:s + PRB_SEQ_CHUNK], dtype=torch.bool))
+             for s in range(0, po.shape[0], PRB_SEQ_CHUNK)]
+    return [torch.cat([p_[i] for p_ in parts]) for i in range(3)]
+
+
+def flights_differ(a, b) -> tuple:
+    """Rays whose found / dead differ between two bounce0_flights, or whose
+    t_samp differ by more than WALK_ATOL + WALK_RTOL |t|; the largest
+    |dt| of the rays found by both."""
+    differ = (a[0] != b[0]) | (a[1] != b[1])
+    both = a[0] & b[0]
+    dt = torch.abs(a[2] - b[2])[both]
+    outside = dt > WALK_ATOL + WALK_RTOL * torch.abs(b[2][both])
+    return int(differ.sum()) + int(outside.sum()), float(dt.max()) if dt.numel() else 0.0
+
+
+# Phase 31's pairs of paths whose walks kill the same rays: their frames are
+# the same estimator, held to each other within 4 standard errors, and,
+# where the flag is set, per ray at bounce 0. The jump path (4 windows from
+# the jump block), the sequential fused walk (max_windows from t = 0) and
+# the xla walk's re-collection rounds kill different rays where more than
+# k intervals overlap (the plume's core): their means differ by more than
+# the noise of a 512^2 frame, and are recorded beside their bounce-0 dead
+# shares. A re-collection round clamps every straddling entry to its
+# start, and the tie goes to the lower primitive id, in Morton order with
+# clusters and in scene order without: where more than k straddle, the
+# two keep different intervals, so the xla pair agrees in mean only.
+TWIN_PATHS = (("coeff_gemm_pallas", "jump_pallas", True),
+              ("clusters_pallas", "sequential_pallas", True),
+              ("clusters_xla", "sequential_xla", False))
+
+
+def prb_walk_paths(ffwalk, medium, pcam, po, pd, sky, dev, details) -> dict:
+    """Phase 31: first count_intervals on the camera rays and
+    suggest_budgets' config (prb_budgets). Then the plume frame under that
+    config on the jump path (pallas), through the sequential walk
+    (jump=False) and through cluster collection (use_clusters), each under
+    both backends, through coeff_gemm (pallas) and with the Epanechnikov
+    kernel (xla). Every walk launch of the pallas runs is recorded (the
+    count set to 0 just before the frame) and replayed against the plain
+    version; each path's launches and walk_work are printed. Each frame:
+    the counted run, then 2 timed (the xla paths: XLA_SEQ_WIDTH^2, the
+    counted run alone); its mean, its bounce-0 found and dead shares
+    (free_flight on its camera rays with one xi) and its standard errors
+    from the jump frame's mean. TWIN_PATHS are held to each other:
+    means within 4 standard errors, bounce-0 decisions per ray where
+    flagged."""
+    from volprim_tpu_torch.models import prb, render
+    from volprim_tpu_torch.scene import generate_rays, synthetic
+
+    need = torch.cat([prb.count_intervals(medium, po[s:s + PRB_SEQ_CHUNK],
+                                          pd[s:s + PRB_SEQ_CHUNK], 1024)
+                      for s in range(0, po.shape[0], PRB_SEQ_CHUNK)]).cpu().numpy()
+    sug = prb.suggest_budgets(medium, po, pd, prb.PRBConfig())
+    res = {"budgets": dict(
+        need_p50=float(np.percentile(need, 50)), need_p99=float(np.percentile(need, 99)),
+        need_p999=float(np.percentile(need, 99.9)), need_max=int(need.max()),
+        collect_budget=sug.collect_budget, max_windows=sug.max_windows)}
+    phase("prb_budgets", **res["budgets"])
+    if not (sug.collect_budget % 16 == 0 and sug.max_windows * sug.max_overlaps
+            >= sug.collect_budget and sug.collect_budget <= ffwalk.MAX_KP):
+        fail(f"prb_walk_paths: suggest_budgets gave {res['budgets']}")
+
+    # the xla walk's sequential paths take 49-63 s a 512^2 frame on an H100
+    # 80GB HBM3 at 700 W (scripts/prb_phases.py --xla_seq_width 512; eager
+    # window loops on every live ray, re-collection rounds): they render at
+    # XLA_SEQ_WIDTH^2, once, and their twin is held at that film
+    paths = {
+        "jump_pallas": dict(walk_backend="pallas"),
+        "sequential_xla": dict(jump=False, walk_backend="xla"),
+        "sequential_pallas": dict(jump=False, walk_backend="pallas"),
+        "clusters_xla": dict(use_clusters=True, walk_backend="xla"),
+        "clusters_pallas": dict(use_clusters=True, walk_backend="pallas"),
+        "coeff_gemm_pallas": dict(coeff_gemm=True, walk_backend="pallas"),
+        "epanechnikov_xla": dict(kernel_type="epanechnikov", walk_backend="xla"),
+    }
+    small_cam = synthetic.medium_camera(XLA_SEQ_WIDTH, XLA_SEQ_WIDTH)
+    so, sd = generate_rays(small_cam, jitter=False, device=dev)
+    walk_rows, stats, flights = {}, {}, {}
+    for i, (name, kw) in enumerate(paths.items()):
+        cfg = dataclasses.replace(sug, **kw)
+        slow = kw["walk_backend"] == "xla"
+        cam, ro, rd = (small_cam, so, sd) if slow else (pcam, po, pd)
+        seeds = iter(range(1000 + 100 * i, 1100 + 100 * i))
+
+        def frame():
+            return render(medium, cam, prb.radiance, cfg, sky, 1,
+                          torch.Generator(device=dev).manual_seed(next(seeds)))
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img, n_launch, rec = recording_walks(ffwalk, frame)
+        counted_s = time.perf_counter() - t0
+        times = [counted_s * 1e3] if slow else cuda_times(frame, 2, warmup=0)
+        row = dict(width=cam.width, frame_ms=float(np.median(times)), frame_ms_min=times[0],
+                   counted_frame_s=round(counted_s, 2),
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=n_launch)
+        if not bool(torch.isfinite(img).all()):
+            fail(f"prb_walk_paths: the {name} frame is not finite")
+        stats[name] = frame_stats(img)
+        row["mean_radiance"] = [float(x) for x in stats[name]["mean"]]
+        row["z_vs_jump_frame"] = means_agree(stats[name], stats["jump_pallas"])[1]
+        xi = 1e-7 + (1.0 - 1e-7) * torch.rand(ro.shape[0], generator=torch.Generator(
+            device=dev).manual_seed(31), device=dev)
+        if kw["walk_backend"] == "pallas":
+            if n_launch == 0 or n_launch != len(rec):
+                fail(f"prb_walk_paths: {name} launched the walk {n_launch} times "
+                     f"({len(rec)} recorded)")
+            rows = replay_walks(ffwalk, rec, f"prb_walk_paths {name}")
+            walk_rows[name] = rows
+            row["walk"] = walk_totals(rows)
+        elif n_launch:
+            fail(f"prb_walk_paths: the xla walk launched the walk kernel ({name})")
+        del rec
+        flights[name] = bounce0_flights(prb, medium, ro, rd, xi, cfg)
+        row["bounce0_found_share"] = float(flights[name][0].float().mean())
+        row["bounce0_dead_share"] = float(flights[name][1].float().mean())
+        res[name] = row
+        phase("prb_walk_path", path=name, **row)
+    twins = {}
+    for a_, b_, per_ray in TWIN_PATHS:
+        agree, z = means_agree(stats[a_], stats[b_])
+        n_bad, dt = flights_differ(flights[a_], flights[b_])
+        twins[f"{a_}~{b_}"] = dict(max_z=z, bounce0_rays_differ=n_bad, bounce0_max_abs_dt=dt)
+        if not agree or (per_ray and n_bad > WALK_DIFF_SHARE * flights[a_][0].shape[0]):
+            fail(f"prb_walk_paths: {a_} and {b_} differ: {twins[f'{a_}~{b_}']}")
+    res["twins"] = twins
+    phase("prb_walk_twins", **twins)
+    details["prb_walk_paths"] = dict(res, walk_launches=walk_rows)
+    return res
+
+
+def box_mesh(dev):
+    """Phase 32's Cornell box around the plume: size 1.5, Principled walls
+    (roughness 0.5, metallic 0.2), its left wall (between the camera and
+    the plume) left out."""
+    from volprim_tpu_torch.scene import mesh
+
+    attrs = {"base_color": [0.73, 0.73, 0.73], "roughness": [0.5], "metallic": [0.2]}
+    walls = {w: dict(attrs) for w in ("floor", "ceiling", "back")}
+    walls["right"] = {**attrs, "base_color": [0.12, 0.45, 0.15]}
+    return mesh.cornell_box(1.5, walls, device=dev)
+
+
+def prb_surfaces(ffwalk, medium, pcam, sky, dev, details) -> dict:
+    """Phase 32: the plume inside box_mesh() with Principled walls, 512^2,
+    1 spp, through the pallas walk: its walk launches (finite surface caps
+    t_cap) recorded and replayed against the plain version, the frame's
+    time; then the white furnace: a 512-primitive plume made inert (sigma_t
+    0) over a white diffuse floor under a unit sky, whose mean radiance
+    must lie within 4 standard errors of 1 (every path returns 1 in
+    expectation)."""
+    from volprim_tpu_torch.models import prb, render
+    from volprim_tpu_torch.ops import bsdf, envmap
+    from volprim_tpu_torch.scene import mesh, synthetic
+
+    box = box_mesh(dev)
+    cfg = prb.PRBConfig(walk_backend="pallas")
+    seeds = iter(range(3200, 3300))
+
+    def frame():
+        return render(medium, pcam,
+                      lambda *a: prb.radiance(*a, mesh=box, bsdf=bsdf.Principled()),
+                      cfg, sky, 1, torch.Generator(device=dev).manual_seed(next(seeds)))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    img, n_launch, rec = recording_walks(ffwalk, frame)
+    times = cuda_times(frame, 2, warmup=0)
+    if not bool(torch.isfinite(img).all()):
+        fail("prb_surfaces: the frame is not finite")
+    if n_launch == 0 or n_launch != len(rec):
+        fail(f"prb_surfaces: the walk launched {n_launch} times ({len(rec)} recorded)")
+    rows = replay_walks(ffwalk, rec, "prb_surfaces")
+    del rec
+    walk = walk_totals(rows)
+    if walk["finite_caps"] == 0:
+        fail("prb_surfaces: no walk launch had a finite surface cap")
+    res = dict(frame_ms=float(np.median(times)), frame_ms_min=times[0],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               faces=box.num_faces, launches=n_launch,
+               mean_radiance=[float(x) for x in img.reshape(-1, 3).mean(0)], walk=walk)
+    # the white furnace, on a plume of 512 primitives: in the 4096-primitive
+    # one more than k intervals overlap, and a ray the walk kills on its way
+    # through the (inert) medium returns 0, not 1
+    thin = synthetic.make_medium(512, seed=0, device=dev)
+    inert = dataclasses.replace(thin, attrs={**thin.attrs,
+                                             "sigma_t": thin.attrs["sigma_t"] * 0.0})
+    floor = mesh.make_rect([0, -0.6, 0], [50, 0, 0], [0, 0, -50], {"base_color": [1.0] * 3},
+                           device=dev)
+    unit = envmap.ConstantEmitter(radiance=torch.ones(3, device=dev))
+    fcfg = prb.PRBConfig(walk_backend="pallas", bounce_cap=24)
+    fimg, f_launch, f_rec = recording_walks(ffwalk, lambda: render(
+        inert, pcam, lambda *a: prb.radiance(*a, mesh=floor, bsdf=bsdf.Diffuse()), fcfg, unit,
+        1, torch.Generator(device=dev).manual_seed(32)))
+    f_rows = replay_walks(ffwalk, f_rec, "prb_surfaces furnace")
+    del f_rec
+    st = frame_stats(fimg)
+    z = float(torch.max(torch.abs(st["mean"] - 1.0) / torch.clamp(st["se"], min=1e-30)))
+    res["furnace"] = dict(mean_radiance=[float(x) for x in st["mean"]],
+                          se=[float(x) for x in st["se"]], max_z=z, launches=f_launch,
+                          walk=walk_totals(f_rows))
+    phase("prb_surfaces", **res)
+    details["prb_surfaces"] = dict(res, times=times, walk_launches=rows)
+    if not (bool(torch.isfinite(fimg).all()) and z <= 4.0):
+        fail(f"prb_surfaces: the furnace's mean {res['furnace']['mean_radiance']} is {z:.2f} "
+             "standard errors from 1")
+    return res
+
+
+def render_volume_cli(details) -> dict:
+    """Phase 33: the render_volume CLI in a subprocess at RV_WIDTH^2 and
+    RV_SPP spp (cut from 64), once with --walk_backend xla --auto_budget and once
+    with --walk_backend pallas: finite EXRs, their means within 4 standard
+    errors of each other, each wall time."""
+    from volprim_tpu_torch.utils.image import read_exr
+
+    torch.cuda.empty_cache()  # the subprocesses need the card's memory
+    os.makedirs(ASSET_DIR, exist_ok=True)
+    res, stats = {}, {}
+    for name, extra in (("xla_auto_budget", ["--walk_backend", "xla", "--auto_budget"]),
+                        ("pallas", ["--walk_backend", "pallas"])):
+        exr = os.path.join(ASSET_DIR, f"render_volume_{name}.exr")
+        wall, stdout = _run_cli("render_volume", [
+            "--output", exr, "--spp", str(RV_SPP), "--width", str(RV_WIDTH), "--height",
+            str(RV_WIDTH), *extra])
+        img = read_exr(exr)
+        if img.shape != (RV_WIDTH, RV_WIDTH, 3) or not np.isfinite(img).all():
+            fail(f"render_volume_cli: {name}'s image is {img.shape} or not finite")
+        x = torch.from_numpy(img).reshape(-1, 3).double()
+        # RV_SPP samples a pixel: the pixel values' spread over their count
+        stats[name] = dict(mean=x.mean(0), se=x.std(0) / math.sqrt(x.shape[0]))
+        m = re.search(r"Rendering: ([0-9.]+) ms", stdout)
+        budget = re.search(r"collect_budget=(\d+) max_windows=(\d+)", stdout)
+        res[name] = dict(wall_s=wall, render_ms=float(m.group(1)) if m else None,
+                         mean=[float(v) for v in stats[name]["mean"]],
+                         auto_budget=[int(budget.group(1)), int(budget.group(2))]
+                         if budget else None)
+    agree, z = means_agree(stats["xla_auto_budget"], stats["pallas"])
+    res.update(max_z=z, spp=RV_SPP, spp_cut_from=64)
+    phase("render_volume_cli", **res)
+    details["render_volume_cli"] = res
+    if not agree:
+        fail(f"render_volume_cli: the two images' means are {z:.2f} standard errors apart")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="directory for details and a profiler table")
@@ -3194,6 +3642,17 @@ def main() -> None:
     gridvol_reference(dev, details)
     volume_clis(dev, details)
 
+    # ---- 30-33. the rest of the path tracer: the xla walk, the sequential
+    # and cluster walks, coeff_gemm, Epanechnikov, surfaces, render_volume
+    jump_stats = frame_stats(pimg)
+    prb_xla_frame(medium, pcam, po, pd, sky, jump_stats, dev, details)
+    paths = prb_walk_paths(ffwalk, medium, pcam, po, pd, sky, dev, details)
+    surf = prb_surfaces(ffwalk, medium, pcam, sky, dev, details)
+    render_volume_cli(details)
+    new_walks = {"sequential": paths["sequential_pallas"]["walk"],
+                 "clusters": paths["clusters_pallas"]["walk"],
+                 "coeff_gemm": paths["coeff_gemm_pallas"]["walk"], "surfaces": surf["walk"]}
+
     if args.out:
         busy_ms, split = device_profile(
             lambda i: prb_frame(700 + i), args.out, "chip_smoke_prb_profile.txt",
@@ -3290,12 +3749,18 @@ def main() -> None:
         "source": "volprim_tpu_torch/csrc/ffwalk.cu",
         "replaces": "volprim_tpu/pallas_kernels/ffwalk.py:81",
         "launches": prb_launches,
-        "max_abs_err": max(r_["max_abs_dt"] for r_ in walk_checks + launch_rows),
+        "max_abs_err": max([r_["max_abs_dt"] for r_ in walk_checks + launch_rows]
+                           + [w["max_abs_dt"] for w in new_walks.values()]),
         "ms": walk_ms,
         "plain_ms": walk_plain_ms,
         "bound_ms": walk_bound_ms,
         "bound_by": "bytes" if bound_bytes >= walk_bound_ms / 2 else "operations",
         "library_ms": None,
+        **{f"{key}_{path}": w[field] for path, w in new_walks.items()
+           for key, field in (("launches", "launches"), ("ms", "ms"), ("bound_ms", "bound_ms"),
+                              ("bound_by", "bound_by"),
+                              ("plain_ms_largest_launch", "largest_launch_plain_ms"),
+                              ("ms_largest_launch", "largest_launch_ms"))},
     }] + [{
         "name": name,
         "route": "cuda",

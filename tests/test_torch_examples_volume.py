@@ -10,8 +10,8 @@ sizes.
 - render_asset on the asset the CLI wrote (scene.json) and on a
   reference-format asset that save_reference_asset wrote: each equals an
   in-process render of the same scene through models.REGISTRY; an envmap
-  emitter; a volprim_prb asset raises NotImplementedError naming §A5
-  unless it asks for walk_backend="pallas".
+  emitter; a volprim_prb asset renders with its default walk and with
+  walk_backend="pallas".
 """
 
 import json
@@ -140,13 +140,10 @@ def test_render_asset_scene_json(tmp_path, medium):
 def test_render_asset_prb_needs_the_pallas_walk(tmp_path, medium):
     s, cam = medium
     d = str(tmp_path / "asset")
-    save_asset(d, s, [cam], integrator={"type": "volprim_prb", "max_depth": 4},
-               emitters={"environment": {"type": "constant", "radiance": 1.0}})
-    with pytest.raises(NotImplementedError, match="§A5"):
-        ra.main([d, "--output", str(tmp_path / "o.exr"), "--device", "cpu"])
-    save_asset(d, s, [cam], integrator={"type": "volprim_prb", "max_depth": 4,
-                                        "walk_backend": "pallas"},
-               emitters={"environment": {"type": "constant", "radiance": 1.0}})
-    img = ra.main([d, "--output", str(tmp_path / "o.exr"), "--spp", "1", "--device", "cpu"])
-    assert img.shape == (16, 20, 3) and bool(torch.isfinite(img).all())
-    assert "walk_backend='pallas'" in ra.parser().format_help()
+    # the path tracer renders with its default (xla) walk and with the fused one
+    for extra in ({}, {"walk_backend": "pallas"}):
+        save_asset(d, s, [cam], integrator={"type": "volprim_prb", "max_depth": 4, **extra},
+                   emitters={"environment": {"type": "constant", "radiance": 1.0}})
+        img = ra.main([d, "--output", str(tmp_path / "o.exr"), "--spp", "1", "--device",
+                       "cpu"])
+        assert img.shape == (16, 20, 3) and bool(torch.isfinite(img).all())

@@ -141,15 +141,15 @@ def test_unknown_kernel_type_raises():
 
 
 def test_refusals_name_their_roadmap_items():
-    """What stays unported names the ROADMAP.md item that ports it: the path
-    tracer's general walk for non-Gaussian kernels (§A5), the device mesh
-    (§A7); the TPU layout knobs have no counterpart (§D)."""
+    """What stays unported names the ROADMAP.md item that ports it: the
+    device mesh (§A7); the TPU layout knobs have no counterpart (§D). The
+    path tracer's general walk and the tent filter are ported: an
+    Epanechnikov medium renders through the tent filter."""
     from volprim_tpu_torch.models import base, prb, rf_tiled
+    from volprim_tpu_torch.ops import envmap
     from volprim_tpu_torch.scene import CameraSpecs, look_at, synthetic
     from volprim_tpu_torch.tools import profile_rf
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A5"):
-        prb._check_ported(prb.PRBConfig(kernel_type="epanechnikov", walk_backend="pallas"))
     s = synthetic.make_scene(256, device="cpu")
     cam = CameraSpecs(name="c", width=16, height=16, fov=50.0,
                       to_world=look_at([0, 0.4, -3.2], [0, 0, 0], [0, 1, 0]))
@@ -157,9 +157,14 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="ROADMAP.md §A7"):
         rf_tiled.render_state(rf_tiled.build_state(s, cfg), cam, cfg, mesh=object())
     gen = torch.Generator()
-    for kw, item in ((dict(mesh=object()), "§A7"), (dict(rfilter="tent"), "§A5")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            base.render(s, cam, lambda *a: None, None, None, 1, gen, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A7"):
+        base.render(s, cam, lambda *a: None, None, None, 1, gen, mesh=object())
+    medium = synthetic.make_medium(256, device="cpu")
+    img = base.render(medium, synthetic.medium_camera(8, 8), prb.radiance,
+                      prb.PRBConfig(kernel_type="epanechnikov", walk_backend="pallas",
+                                    bounce_cap=4),
+                      envmap.ConstantEmitter(radiance=torch.ones(3)), 1, gen, rfilter="tent")
+    assert bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
     for argv in (["--feat_major"], ["--kernel_batch", "2"]):
         with pytest.raises(SystemExit, match="ROADMAP.md §D"):
             profile_rf.main(["--cpu", *argv])

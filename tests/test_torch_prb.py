@@ -22,8 +22,8 @@ from volprim_tpu.models import prb as jprb
 from volprim_tpu.ops import envmap as jenvmap
 from volprim_tpu_torch import as_device, default_device
 from volprim_tpu_torch.models import base, prb, render
-from volprim_tpu_torch.ops import envmap, kernels, quadric
-from volprim_tpu_torch.scene import generate_rays, synthetic
+from volprim_tpu_torch.ops import bsdf, envmap, kernels, quadric
+from volprim_tpu_torch.scene import generate_rays, mesh, synthetic
 
 CFG = prb.PRBConfig(walk_backend="pallas")
 
@@ -244,20 +244,46 @@ def test_render_is_finite_seeded_and_reproducible():
 
 
 def test_unported_options_raise():
+    """What still raises: a device mesh (ROADMAP.md §A7) in the render loop,
+    and a missing generator. The path tracer's options raise no more:
+    test_options_render renders them."""
     ts, sky, cfg = absorbing()
     o, d = same_rays(4)
     g = torch.Generator()
-    for bad in (dict(walk_backend="xla"), dict(jump=False), dict(use_clusters=True),
-                dict(coeff_gemm=True), dict(kernel_type="epanechnikov")):
-        with pytest.raises(NotImplementedError):
-            prb.radiance(ts, sky, o, d, prb.PRBConfig(**{**dict(walk_backend="pallas"), **bad}), g)
-    with pytest.raises(NotImplementedError):
-        prb.radiance(ts, sky, o, d, cfg, g, mesh=object())
     with pytest.raises(ValueError, match="Generator"):
         prb.radiance(ts, sky, o, d, cfg)
     cam = synthetic.medium_camera(4, 4)
-    for kw in (dict(rfilter="tent"), dict(spp_group=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            base.render(ts, cam, prb.radiance, cfg, sky, 2, g, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A7"):
+        base.render(ts, cam, prb.radiance, cfg, sky, 2, g, mesh=object())
     with pytest.raises(ValueError, match="Generator"):
         base.render(ts, cam, prb.radiance, cfg, sky, 1)
+
+
+@pytest.mark.parametrize("option", [
+    dict(walk_backend="xla"), dict(jump=False), dict(use_clusters=True, cluster_size=8),
+    dict(coeff_gemm=True), dict(kernel_type="epanechnikov"), dict(rfilter="tent"),
+    dict(spp_group=2), dict(mesh=True), dict(defaults=True),
+], ids=lambda kw: next(iter(kw)))
+def test_options_render(option):
+    """The options that raised before the rest of the path tracer was
+    ported: each renders a finite 8x8 frame of the absorbing medium, and the
+    default PRBConfig() renders too."""
+    ts, sky, cfg = absorbing()
+    cam = synthetic.medium_camera(8, 8)
+    kw, cfg_kw = {}, {}
+    for key, value in option.items():
+        if key in ("rfilter", "spp_group"):
+            kw[key] = value
+        elif key == "mesh":
+            m = mesh.make_rect([0, -0.8, 0], [3, 0, 0], [0, 0, -3], {"base_color": [0.5] * 3},
+                               device="cpu")
+            kw["radiance_fn"] = lambda *a: prb.radiance(*a, mesh=m, bsdf=bsdf.Diffuse())
+        elif key == "defaults":
+            cfg = prb.PRBConfig()
+        else:
+            cfg_kw[key] = value
+    cfg = dataclasses.replace(cfg, **cfg_kw)
+    fn = kw.pop("radiance_fn", prb.radiance)
+    img = base.render(ts, cam, fn, cfg, sky, 2, torch.Generator().manual_seed(3), **kw)
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    assert float(img.max()) > 0.0

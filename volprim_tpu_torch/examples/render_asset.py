@@ -11,9 +11,7 @@ A directory with an ``__init__.py`` is a reference-format Python asset
 (``scene.asset``). The integrator and its config come from
 ``models.REGISTRY`` / ``CONFIGS`` by the asset's integrator name
 (``volprim_tomography`` when it names none); constant and envmap emitters
-are supported. A ``volprim_prb`` asset renders only when its integrator
-asks for ``walk_backend="pallas"``: the path tracer's xla walk is not
-ported (ROADMAP.md §A5) and raises ``NotImplementedError``.
+are supported.
 """
 
 from __future__ import annotations
@@ -32,10 +30,7 @@ from ..utils.benchmark import single_run
 
 
 def parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        description="Render a saved asset",
-        epilog="A volprim_prb asset needs walk_backend='pallas' in its integrator: the "
-        "path tracer's xla walk is not ported (ROADMAP.md §A5) and raises.")
+    ap = argparse.ArgumentParser(description="Render a saved asset")
     ap.add_argument("asset", type=str, help="Path to the asset directory")
     ap.add_argument("--cam_index", type=int, default=0)
     ap.add_argument("--cam_scale", type=float, default=1.0)

@@ -1,5 +1,5 @@
-"""Carry a scene, a grid volume or the training parameters across between
-the JAX package and the port as numpy.
+"""Carry a scene, a triangle mesh, a grid volume or the training parameters
+across between the JAX package and the port as numpy.
 
 Both packages then compute on the same parameters:
 
@@ -83,3 +83,19 @@ def grid_from_arrays(data, bbox_min, bbox_max, device=None):
     from .scene.vol import GridVolume
 
     return GridVolume.from_arrays(data, bbox_min, bbox_max, device)
+
+
+def mesh_from_arrays(vertices, faces, attrs: dict = None, device=None):
+    """The port's TriangleMesh from numpy arrays (``vertices`` [V, 3],
+    ``faces`` [F, 3] integer, each attribute [V, ...]), float32 / int64 on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    from . import as_device
+    from .scene.mesh import TriangleMesh
+
+    dev = as_device(device)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    return TriangleMesh(t(vertices), torch.from_numpy(np.array(faces, dtype=np.int64)).to(dev),
+                        {k: t(v) for k, v in (attrs or {}).items()})

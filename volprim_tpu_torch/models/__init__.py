@@ -6,9 +6,9 @@
 
 - ``volprim_tomography``: absorption only (models/tomography.py);
 - ``volprim_rf``: the exact-order radiance-field oracle (models/rf.py);
-- ``volprim_prb``: the volumetric path tracer (models/prb.py). Its config
-  defaults to ``walk_backend="xla"``, which is not ported and raises,
-  naming ROADMAP.md §A5: an asset must ask for ``walk_backend="pallas"``.
+- ``volprim_prb``: the volumetric path tracer (models/prb.py), in every
+  configuration of its ``PRBConfig`` (the default ``walk_backend="xla"``
+  or the fused ``"pallas"`` walk).
 
 The tiled renderer (rf_tiled) and the grid-volume renderers (gridvol) are
 not registered, as in the JAX package.

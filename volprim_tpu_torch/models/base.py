@@ -80,25 +80,38 @@ def render(
 
     ``radiance_fn(primitives, emitter, o, d, cfg, generator) -> [R, 3]``;
     ``generator`` is a ``torch.Generator`` on that device and is required.
+    ``rfilter="tent"`` splats bilinearly, any other value into the
+    containing pixel (box).
+    ``spp_group`` folds that many samples into one wavefront (their film
+    jitters drawn one after another, then one radiance call over the
+    stacked rays): the estimator is unchanged, memory grows with the group.
+    The largest divisor of ``spp`` not above it is used.
     """
     if generator is None:
         raise ValueError("render needs an explicit torch.Generator on the render's device")
-    if rfilter != "box":
-        raise NotImplementedError(f"rfilter={rfilter!r} is not ported (ROADMAP.md §A5)")
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported (ROADMAP.md §A7)")
-    if spp_group != 1:
-        raise NotImplementedError("spp_group != 1 is not ported (ROADMAP.md §A5)")
+    splat = _splat(rfilter)
     dev = primitives.device
     h, w = camera.height, camera.width
+    g = max(1, min(int(spp_group), spp))
+    while spp % g:
+        g -= 1
     film = Film(torch.zeros((h, w, 3), device=dev), torch.zeros((h, w), device=dev))
-    for _ in range(spp):
-        px, py = film_coords(camera, generator, device=dev)
+    for _ in range(spp // g):
+        coords = [film_coords(camera, generator, device=dev) for _ in range(g)]
+        px = torch.cat([c[0] for c in coords])
+        py = torch.cat([c[1] for c in coords])
         o, d = rays_from_pixels(camera, px, py)
         radiance = radiance_fn(primitives, emitter, o, d, cfg, generator)
-        img, wgt = filters.splat_box(radiance, px, py, w, h)
+        img, wgt = splat(radiance, px, py, w, h)
         film = Film(film.img + img, film.wgt + wgt)
     return film.develop()
+
+
+def _splat(rfilter: str):
+    """The tent splat for ``"tent"``, the box splat for anything else."""
+    return filters.splat_tent if rfilter == "tent" else filters.splat_box
 
 
 def batch_rays(cameras: Sequence[CameraSpecs], px: torch.Tensor, py: torch.Tensor):
@@ -133,13 +146,13 @@ def render_batch(
 ) -> torch.Tensor:
     """Render N same-resolution cameras side by side into one wide film,
     camera i in columns [i W, (i + 1) W): [H, N W, 3] on the primitives'
-    device. Every sample draws the jitter of all N films from
+    device, splatted as :func:`render` splats for ``rfilter``. Every
+    sample draws the jitter of all N films from
     ``generator`` (required, on that device), then evaluates all their rays
     in one wavefront."""
     if generator is None:
         raise ValueError("render_batch needs an explicit torch.Generator on the render's device")
-    if rfilter != "box":
-        raise NotImplementedError(f"rfilter={rfilter!r} is not ported (ROADMAP.md §A5)")
+    splat = _splat(rfilter)
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported (ROADMAP.md §A7)")
     h, w = cameras[0].height, cameras[0].width
@@ -156,8 +169,7 @@ def render_batch(
         px, py = px0 + off[..., 0], py0 + off[..., 1]
         o, d = batch_rays(cameras, px, py)
         radiance = radiance_fn(primitives, emitter, o, d, cfg, generator)
-        img, wgt = filters.splat_box(radiance, (px + shift).reshape(-1), py.reshape(-1),
-                                     n * w, h)
+        img, wgt = splat(radiance, (px + shift).reshape(-1), py.reshape(-1), n * w, h)
         film = Film(film.img + img, film.wgt + wgt)
     return film.develop()
 

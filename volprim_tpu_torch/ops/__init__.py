@@ -1,9 +1,9 @@
-"""Pure-math ops: quaternions, quadric forms, kernels, SH, emitters and
-film filters (torch)."""
+"""Pure-math ops: quaternions, quadric forms, kernels, SH, emitters, film
+filters and surface BSDFs (torch)."""
 
 import torch
 
-from . import envmap, filters, kernels, quadric, quaternion, sh
+from . import bsdf, envmap, filters, kernels, quadric, quaternion, sh
 from .kernels import Kernel
 from .quadric import QuadricCoeffs, intersect_extent, ray_prim_coeffs
 
@@ -18,6 +18,6 @@ def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
-    "Kernel", "QuadricCoeffs", "envmap", "filters", "intersect_extent", "kernels", "quadric",
+    "Kernel", "QuadricCoeffs", "bsdf", "envmap", "filters", "intersect_extent", "kernels", "quadric",
     "quaternion", "ray_prim_coeffs", "sh", "srgb_to_linear",
 ]

@@ -4,9 +4,9 @@ Gaussian and Epanechnikov primitives: the peak response the radiance-field
 integrators use, the pdfs, the line integrals (over the whole line or a
 segment) the path tracer and tomography use, the free-flight inverse CDFs
 and the peak-matched normalisation factors, dispatched by :class:`Kernel`
-with the JAX package's ``normalized`` and ``full_range`` knobs. The
-Gaussian ``segment_taus`` of the path tracer's xla walk comes with that
-walk (ROADMAP.md §A5).
+with the JAX package's ``normalized`` and ``full_range`` knobs, and the
+batched segment depths of the path tracer's xla window walk
+(:func:`gaussian_segment_taus`).
 
 Directions are assumed normalized, so the t-parameterized integrals equal
 arc-length line integrals. Integrals follow the reference's scrubbing:
@@ -77,6 +77,38 @@ def gaussian_integral_segment(
         * (torch.erf(u1) - torch.erf(u0))
     )
     return _scrub(val, active)
+
+
+def gaussian_segment_taus(
+    coeffs: QuadricCoeffs,
+    s_prod: torch.Tensor,
+    sigma_t: torch.Tensor,
+    entry: torch.Tensor,
+    exit_t: torch.Tensor,
+    events: torch.Tensor,
+) -> torch.Tensor:
+    """Optical depth of every boundary segment ``[events[e], events[e+1])``
+    summed over the K Gaussian pairs: coeffs, s_prod, sigma_t, entry, exit_t
+    [R, K], events [R, E] ascending -> [R, E - 1]. The antiderivative of
+    each pair is taken at the E shared boundaries, clamped into the pair's
+    [entry, exit] (one erf per event and pair), so partial coverage of a
+    segment integrates exactly. Non-finite (padding) events map to each
+    pair's exit, so a segment ending at +inf adds F(exit) - F(lo) >= 0."""
+    a, b, _ = coeffs
+    inv_sqrt_2a = _INV_SQRT2 / torch.sqrt(a)
+    pair_ok = torch.isfinite(entry) & torch.isfinite(exit_t)
+    c_pair = (
+        torch.exp(-0.5 * gaussian_q_min(coeffs))
+        / (2.0 * _TWO_PI * s_prod * torch.sqrt(a))
+        * sigma_t
+    )
+    c_pair = _scrub(c_pair, pair_ok)
+    lo = torch.where(pair_ok, entry, 0.0)[:, None, :]
+    hi = torch.where(pair_ok, exit_t, 0.0)[:, None, :]
+    ev = torch.where(torch.isfinite(events), events, torch.inf)[:, :, None]
+    tcl = torch.minimum(torch.maximum(ev, lo), hi)  # jnp.clip: max, then min
+    f = torch.erf((a[:, None, :] * tcl + b[:, None, :]) * inv_sqrt_2a[:, None, :])
+    return torch.sum(c_pair[:, None, :] * (f[:, 1:, :] - f[:, :-1, :]), dim=-1)
 
 
 def gaussian_inv_cdf(

@@ -5,7 +5,8 @@ Mahalanobis quadratic ``q(t) = a t^2 + 2 b t + c0`` with
 ``M = R diag(s)^-2 R^T``, ``a = d^T M d``, ``b = d^T M (o - c)``,
 ``c0 = (o - c)^T M (o - c)``. Ported: what the exact integrator
 (models/rf.py), the path tracer (models/prb.py) and the v1 tile compositor
-(:func:`prim_features` / :func:`ray_features`, rf_tiled ``backend='pallas'``)
+(:func:`prim_features` / :func:`ray_features`, rf_tiled ``backend='pallas'``,
+and the path tracer's ``coeff_gemm`` scans through :func:`pair_coeffs_gemm`)
 call.
 """
 
@@ -115,6 +116,15 @@ def pair_coeffs_gathered(o, d, centers, scales, quats, ids) -> QuadricCoeffs:
         b = b + w * p
         c = c + p * p
     return QuadricCoeffs(a, b, c)
+
+
+def pair_coeffs_gemm(rayf, pf: torch.Tensor) -> QuadricCoeffs:
+    """All-pairs coefficients as three ``[R, 10] x [10, C]`` products of
+    :func:`ray_features` and :func:`prim_features`. They must run in full
+    f32: the package turns TF32 off, since ``q_min = c - b^2/a`` cancels
+    and reduced-precision products wreck it."""
+    fa, fb, fc = rayf
+    return QuadricCoeffs(fa @ pf, fb @ pf, fc @ pf)
 
 
 def prim_features(centers, scales, quats) -> torch.Tensor:
