@@ -239,9 +239,37 @@ go through csrc/ffwalk.cu on tables no earlier phase gives it:
     --walk_backend pallas: finite EXRs whose means lie within 4 standard
     errors of each other; each wall time.
 
+Then the tooling (volprim_tpu_torch.tooling and its two CLIs; plain
+PyTorch, no kernel of its own but the walk's under walk_backend="pallas"):
+
+34. radiosity_fit (one line a BSDF, diffuse and principled):
+    fit_radiosity_bsdf's scene and defaults (64 points, 96 wi, 1 wo, lr
+    2e-2, procedural_sky(32, 64)) for RAD_ITERS iterations (cut from 60),
+    through the CLI's own setup and step: the step time (median of
+    RAD_TIMED steps through utils.benchmark.measure), peak memory, with
+    --out the device's idle share (torch.profiler, two steps); the loss
+    finite at every step and the final base_color MAE below the initial
+    one; then one compute_loss's cache queries (eval_li_mat, eval_lo) with
+    walk_backend="pallas": its walk launches (rays spawned 1e-3 off the
+    surfaces, finite surface caps, the zero-density medium) recorded and
+    replayed against the plain version, 0 rays differing, and the mean of
+    li_w within 4 standard errors of the xla walk's;
+35. sh_fit_visualizer: fit_sh_on_mesh on phase 34's diffuse ground-truth
+    mesh at its defaults (degree 3, res 15, ray_budget 2^20): time and
+    rays; the reconstruction at 8 interior directions of vertex 0 within
+    0.15 of direct queries (tests/test_tooling.py's self-consistency);
+    render_mesh_attribute of base_color at 512^2: time, finite, a white
+    background corner;
+36. generate_dataset_cli: the CLI in a subprocess on phase 21's PLY at its
+    default 256^2 film and 100,000 points, with --subdivisions 0 (12
+    cameras, cut from 42) and --spp DS_SPP (cut from 8), sized beforehand
+    from phase 5's exact_s: wall time and render time a camera; the
+    layout (11 train and 1 test frames, images as .png and .npy, the
+    points), finite images in [0, inf), the transforms equal to the rig's.
+
 Then the total seconds, a JSON line with each kernel's numbers (the walk's
 with its launches, kernel ms and bound on the sequential, cluster,
-coeff_gemm and surface-capped paths), the card's
+coeff_gemm, surface-capped and radiance-cache paths), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero. There is no CPU mode: without a CUDA card it exits with an
 error. ``--out DIR`` also writes the details and torch.profiler tables of
@@ -3083,6 +3111,228 @@ def render_volume_cli(details) -> dict:
     return res
 
 
+# phase 34: fit_radiosity_bsdf's iterations (cut from 60) and the steps
+# timed among them
+RAD_ITERS, RAD_TIMED = 30, 5
+# phase 36: generate_dataset's icosphere subdivisions (12 cameras; 42 at
+# the default 1) and spp (cut from 8)
+DS_SUBDIV, DS_SPP = 0, 1
+
+
+def radiosity_fit(ffwalk, dev, details, out=None) -> dict:
+    """Phase 34: fit_radiosity_bsdf's setup and step for each BSDF at the
+    CLI's defaults, RAD_ITERS iterations; then one compute_loss's cache
+    queries under walk_backend="pallas", their walk launches replayed
+    against the plain version and li_w's mean held to the xla walk's.
+    Returns the diffuse fit's cache and mesh (phase 35) and the walk's
+    totals."""
+    from volprim_tpu_torch.examples import fit_radiosity_bsdf as fit_cli
+    from volprim_tpu_torch.scene import mesh as mesh_mod
+    from volprim_tpu_torch.utils import benchmark
+
+    res = {}
+    kept = None
+    for name in ("diffuse", "principled"):
+        args = fit_cli.parser().parse_args(["--bsdf", name, "--iterations", str(RAD_ITERS)])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, mesh_gt, cache, attrs, opt = fit_cli.setup(args, dev)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        mae0 = fit_cli.base_color_mae(attrs, mesh_gt)
+        losses = []
+
+        def step():
+            losses.append(fit_cli.step(cache, mesh_gt, model, attrs, opt, gen, args))
+
+        t0 = time.perf_counter()
+        bench = benchmark.measure(step, label=f"radiosity {name}", nb_runs=RAD_TIMED,
+                                  nb_dry_runs=0, log=False)
+        while len(losses) < RAD_ITERS:
+            step()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        loss = torch.stack(losses).cpu()
+        mae = fit_cli.base_color_mae(attrs, mesh_gt)
+        row = dict(iterations=len(losses), iterations_cut_from=60, first_step_ms=bench.compile_ms,
+                   step_ms=float(np.median(bench.runs)), step_ms_runs=bench.runs,
+                   fit_s=fit_s, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   loss_first=float(loss[0]), loss_last=float(loss[-1]),
+                   mae_initial=mae0, mae_final=mae, vertices=mesh_gt.num_vertices,
+                   rays_per_step=args.num_points * (args.num_wi + args.num_wo))
+        if out:
+            busy_ms = device_profile(lambda i: step(), out, f"chip_smoke_radiosity_{name}.txt")
+            row.update(device_busy_ms_per_step=busy_ms,
+                       device_idle_share=1.0 - busy_ms / row["step_ms"])
+        phase("radiosity_fit", bsdf=name, **row)
+        res[name] = row
+        if not bool(torch.isfinite(loss).all()):
+            fail(f"radiosity_fit {name}: a loss is not finite")
+        if not mae < mae0:
+            fail(f"radiosity_fit {name}: the base_color MAE went {mae0:.4f} -> {mae:.4f}")
+        if name == "diffuse":
+            kept = (cache, mesh_gt, args)
+
+    # one compute_loss's cache queries through the walk kernel
+    cache, mesh_gt, args = kept
+    pallas = dataclasses.replace(cache, cfg=dataclasses.replace(cache.cfg,
+                                                                walk_backend="pallas"))
+    with torch.no_grad():
+        pts, nrm, *_ = mesh_mod.sample_surface(
+            mesh_gt, torch.Generator(device=dev).manual_seed(3400), args.num_points)
+
+    def queries(c, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        li_w, _ = c.eval_li_mat(pts, nrm, g, args.num_wi)
+        u = torch.rand((args.num_points, 2), generator=g, device=dev)
+        r, phi = torch.sqrt(u[:, 0]), 2.0 * math.pi * u[:, 1]
+        wo = torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+                          torch.sqrt(torch.clamp(1.0 - u[:, 0], min=0.0))], dim=-1)
+        return li_w, c.eval_lo(pts, nrm, wo, g)
+
+    (li_p, lo_p), n_launch, rec = recording_walks(ffwalk, lambda: queries(pallas, 3401))
+    li_x, lo_x = queries(cache, 3402)
+    if n_launch == 0 or n_launch != len(rec):
+        fail(f"radiosity_fit: the walk launched {n_launch} times ({len(rec)} recorded)")
+    rows = replay_walks(ffwalk, rec, "radiosity_fit walk")
+    del rec
+    walk = walk_totals(rows)
+    stats = {k: frame_stats(v) for k, v in (("pallas", li_p), ("xla", li_x))}
+    agree, z = means_agree(stats["pallas"], stats["xla"])
+    res["pallas_queries"] = dict(
+        rays=int(li_p.shape[0] * li_p.shape[1] + lo_p.shape[0]), launches=n_launch,
+        li_w_mean={k: [float(x) for x in v["mean"]] for k, v in stats.items()}, max_z=z,
+        walk=walk)
+    phase("radiosity_walk", **res["pallas_queries"])
+    details["radiosity_fit"] = dict(res, walk_launches=rows)
+    finite = all(bool(torch.isfinite(x).all()) for x in (li_p, lo_p, li_x, lo_x))
+    if not finite or walk["rays_differ"] or walk["finite_caps"] == 0:
+        fail(f"radiosity_fit: pallas queries finite {finite}, {walk['rays_differ']} rays "
+             f"differ from the plain walk, {walk['finite_caps']} finite caps")
+    if not agree:
+        fail(f"radiosity_fit: li_w's means under the two walks are {z:.2f} standard errors "
+             "apart")
+    return dict(res, cache=cache, mesh=mesh_gt, walk=walk)
+
+
+def sh_fit_visualizer(cache, mesh_gt, dev, details) -> dict:
+    """Phase 35: fit_sh_on_mesh at its defaults on phase 34's diffuse
+    scene, held to direct queries at vertex 0; render_mesh_attribute of
+    base_color at 512^2."""
+    from volprim_tpu_torch.ops import bsdf, sh
+    from volprim_tpu_torch.scene import CameraSpecs, look_at
+    from volprim_tpu_torch.tooling import sh_fit, visualizer
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coeffs = sh_fit.fit_sh_on_mesh(cache, mesh_gt, generator=torch.Generator(
+        device=dev).manual_seed(3500))
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    m = sh_fit.spherical_quadrature(15, dev)[0].shape[0]
+    rng = np.random.default_rng(0)
+    dl = rng.normal(size=(8, 3))
+    dl[:, 2] = np.abs(dl[:, 2]) + 1.0  # well inside the hemisphere
+    dl = torch.from_numpy((dl / np.linalg.norm(dl, axis=-1, keepdims=True))
+                          .astype(np.float32)).to(dev)
+    recon = sh.eval_basis(dl, 3) @ coeffs[0]
+    v0, n0 = mesh_gt.vertices[0], mesh_gt.vertex_normals()[0]
+    dw = bsdf.to_world(n0.expand(8, 3), dl)
+    direct = cache.query((v0 + n0 * 1e-3)[None, :] + dw * 1e-3, -dw,
+                         torch.Generator(device=dev).manual_seed(3501))
+    err = float((recon - direct).abs().mean())
+
+    cam = CameraSpecs("vis", 512, 512, look_at([0.0, 2.5, -5.5], [0.0, 0.5, 0.0], [0, 1, 0]),
+                      fov=45.0)
+    vis_ms = []
+    for _ in range(2):  # the first call and a second one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = visualizer.render_mesh_attribute(mesh_gt, cam, "base_color")
+        vis_ms.append((time.perf_counter() - t0) * 1e3)
+    res = dict(vertices=mesh_gt.num_vertices, directions=m, rays=mesh_gt.num_vertices * m,
+               fit_ms=fit_ms, coeffs_finite=bool(torch.isfinite(coeffs).all()),
+               self_consistency_mae=err, limit=0.15, visualizer_ms=vis_ms,
+               visualizer_hit_share=float((img.min(-1) < 0.99).mean()),
+               corner=[float(x) for x in img[0, 0]])
+    phase("sh_fit_visualizer", **res)
+    details["sh_fit_visualizer"] = res
+    if not (res["coeffs_finite"] and err < 0.15):
+        fail(f"sh_fit_visualizer: coefficients finite {res['coeffs_finite']}, the "
+             f"reconstruction {err:.4f} from direct queries (limit 0.15)")
+    if not (np.isfinite(img).all() and img[0, 0].min() >= 0.99 and res["visualizer_hit_share"]):
+        fail("sh_fit_visualizer: the attribute view is not finite, or its corner is not the "
+             "white background, or it shows no mesh")
+    return res
+
+
+def generate_dataset_cli(ply, exact_s, dev, details) -> dict:
+    """Phase 36: the generate_dataset CLI in a subprocess on phase 21's
+    PLY at 256^2 with --subdivisions DS_SUBDIV and --spp DS_SPP; its
+    layout, images and transforms checked."""
+    import shutil
+
+    from volprim_tpu_torch.scene import load_ply
+    from volprim_tpu_torch.tooling import dataset
+
+    out = os.path.join(ASSET_DIR, "dataset")
+    shutil.rmtree(out, ignore_errors=True)
+    n_cams = len(dataset.icosphere(DS_SUBDIV))
+    # the size of the cut, from phase 5's exact-order render of 4,096 pixels
+    # at max_depth 128 (the CLI's is 64): a camera is 65,536 pixels a sample
+    predicted_s = exact_s * 65536 / 4096 * DS_SPP * n_cams
+    torch.cuda.empty_cache()  # the subprocess needs the card's memory
+    wall, stdout = _run_cli("generate_dataset", [
+        "--ply", ply, "--output", out, "--resolution", "256", "--subdivisions", str(DS_SUBDIV),
+        "--spp", str(DS_SPP), "--points", "100000"], timeout=900)
+    cam_ms = [float(x) for x in re.findall(r"Rendering r_\d+: ([0-9.]+) ms", stdout)]
+    center = load_ply(ply, device=dev).centers.mean(dim=0).cpu().numpy().astype(np.float64)
+    rig = dataset.icosphere_rig(center, 4.0, width=256, height=256, fov=45.0,
+                                subdivisions=DS_SUBDIV)
+    n_test = max(1, int(len(rig) * 0.15))
+    splits = {"train": rig[n_test:], "test": rig[:n_test]}
+    problems = []
+    transforms_err = 0.0
+    for split, cams in splits.items():
+        with open(os.path.join(out, f"transforms_{split}.json")) as f:
+            got = json.load(f)
+        want = dataset.transforms_dict(cams)
+        if len(got["frames"]) != len(cams) or got["camera_angle_x"] != want["camera_angle_x"]:
+            problems.append(f"transforms_{split}.json has {len(got['frames'])} frames")
+            continue
+        for a, b in zip(got["frames"], want["frames"]):
+            if a["file_path"] != b["file_path"]:
+                problems.append(f"{split}: frame {a['file_path']} for {b['file_path']}")
+            transforms_err = max(transforms_err, float(np.abs(
+                np.asarray(a["transform_matrix"]) - np.asarray(b["transform_matrix"])).max()))
+    img_min, img_mean = [], []
+    for cam in rig:
+        for ext in ("png", "npy"):
+            if not os.path.exists(os.path.join(out, "images", f"{cam.name}.{ext}")):
+                problems.append(f"images/{cam.name}.{ext} is missing")
+        img = np.load(os.path.join(out, "images", f"{cam.name}.npy"))
+        if img.shape != (256, 256, 3) or not np.isfinite(img).all():
+            problems.append(f"images/{cam.name}.npy is {img.shape} or not finite")
+        img_min.append(float(img.min()))
+        img_mean.append(float(img.mean()))
+    pc = np.load(os.path.join(out, "points3d.npz"))
+    if pc["points"].shape != (100000, 3) or pc["colors"].shape != (100000, 3):
+        problems.append(f"points3d.npz holds {pc['points'].shape} points")
+    res = dict(cameras=n_cams, cameras_cut_from=42, spp=DS_SPP, spp_cut_from=8,
+               predicted_render_s=predicted_s, wall_s=wall, camera_ms=cam_ms,
+               camera_ms_median=float(np.median(cam_ms)) if cam_ms else None,
+               transforms_max_err=transforms_err, image_min=min(img_min),
+               image_mean=float(np.mean(img_mean)), points=int(pc["points"].shape[0]))
+    phase("generate_dataset_cli", **res)
+    details["generate_dataset_cli"] = res
+    if len(cam_ms) != n_cams:
+        problems.append(f"{len(cam_ms)} camera render times printed for {n_cams} cameras")
+    if min(img_min) < 0.0 or transforms_err > 1e-6:
+        problems.append(f"image minimum {min(img_min)}, transforms {transforms_err} off the rig")
+    if problems:
+        fail("generate_dataset_cli: " + "; ".join(problems))
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="directory for details and a profiler table")
@@ -3631,6 +3881,7 @@ def main() -> None:
     # ---- 21-25. the 3DGS-asset path: PLY and cameras, the xla route, ----
     # emitters and the two CLIs
     paths = asset_io(scene, details)
+    asset_ply = paths["ply"]
     xla_frame(rf_tiled, rf, scene, camera, exact, sel, o_sel, d_sel, details, args.out)
     xla_train_step(rf_tiled, camera, dev, details)
     emitter_check(composite3, rf_tiled, scene, camera, details)
@@ -3649,9 +3900,16 @@ def main() -> None:
     paths = prb_walk_paths(ffwalk, medium, pcam, po, pd, sky, dev, details)
     surf = prb_surfaces(ffwalk, medium, pcam, sky, dev, details)
     render_volume_cli(details)
+
+    # ---- 34-36. the tooling: the radiance cache and radiosity fit, SH
+    # fitting and the visualizer, the generate_dataset CLI
+    rad = radiosity_fit(ffwalk, dev, details, args.out)
+    sh_fit_visualizer(rad["cache"], rad["mesh"], dev, details)
+    generate_dataset_cli(asset_ply, exact_s, dev, details)
     new_walks = {"sequential": paths["sequential_pallas"]["walk"],
                  "clusters": paths["clusters_pallas"]["walk"],
-                 "coeff_gemm": paths["coeff_gemm_pallas"]["walk"], "surfaces": surf["walk"]}
+                 "coeff_gemm": paths["coeff_gemm_pallas"]["walk"], "surfaces": surf["walk"],
+                 "radiance_cache": rad["walk"]}
 
     if args.out:
         busy_ms, split = device_profile(

@@ -36,7 +36,9 @@ def as_device(device=None) -> torch.device:
 
 from . import accel, kernels, models, ops, optim, scene, utils  # noqa: E402
 
-# the JAX package's aliases (the reference's volprim.io, .optimizers, .benchmark)
+# the JAX package's aliases (the reference's volprim.cameras, .io, .optimizers,
+# .benchmark)
+cameras = scene.cameras
 io = scene.asset
 optimizers = optim
 benchmark = utils.benchmark

@@ -32,6 +32,28 @@ def _keys(depth, dist, radii, cos_half):
     return torch.where(hit, depth, torch.full_like(depth, float("inf")))
 
 
+def tile_cones(o: torch.Tensor, d: torch.Tensor, tile_rays: int):
+    """Bounding cones of consecutive tiles of ``tile_rays`` rays that share
+    one origin (o, d [R, 3], R a multiple of ``tile_rays``). Returns
+    (origins [T, 3], unit axes [T, 3], cos_half [T])."""
+    t = o.shape[0] // tile_rays
+    dt = d.reshape(t, tile_rays, 3)
+    axis = dt.mean(dim=1)
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    cos_half = torch.amin(torch.sum(dt * axis[:, None, :], dim=-1), dim=1)
+    return o.reshape(t, tile_rays, 3)[:, 0], axis, torch.clamp(cos_half, -1.0, 1.0)
+
+
+def cone_cull_keys(origin, axis, cos_half, centers, radii) -> torch.Tensor:
+    """Keys of one cone (origin [3], axis [3], cos_half []) against N
+    spheres (centers [N, 3], radii [N]) -> [N]."""
+    v = centers - origin
+    dist = torch.sqrt(torch.sum(v * v, dim=-1))
+    depth = v[:, 0] * axis[0] + v[:, 1] * axis[1] + v[:, 2] * axis[2]
+    return _keys(depth, dist, radii, torch.as_tensor(cos_half, dtype=depth.dtype,
+                                                     device=depth.device))
+
+
 def cone_cull_keys_batch(origin, axes, cos_half, centers, radii) -> torch.Tensor:
     """Keys of T cones (axes [T, 3], cos_half [T]) against N spheres
     (centers [N, 3], radii [N]) -> [T, N]. Per-sphere terms are computed once
@@ -63,3 +85,11 @@ def shortlist(keys: torch.Tensor, max_candidates: int):
     promise."""
     order = torch.argsort(keys, dim=-1, stable=True)[:, :max_candidates]
     return order, torch.isfinite(torch.gather(keys, 1, order))
+
+
+def shortlist_approx(keys: torch.Tensor, max_candidates: int, recall: float = 0.95):
+    """:func:`shortlist` under the JAX package's name for its coarse cull,
+    where ``lax.approx_max_k`` gives up exactness for speed on a TPU. Here
+    the selection is exact (recall 1, above any ``recall`` asked for)."""
+    del recall
+    return shortlist(keys, max_candidates)

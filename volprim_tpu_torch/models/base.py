@@ -64,6 +64,9 @@ def pad_primitives(prims: EllipsoidScene, multiple: int) -> EllipsoidScene:
     )
 
 
+RadianceFn = Callable[..., torch.Tensor]
+
+
 def render(
     primitives: EllipsoidScene,
     camera: CameraSpecs,

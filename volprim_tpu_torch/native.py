@@ -1,11 +1,11 @@
-"""The host PLY parser of ``native/volprim_native.cpp``, built at first use
-(volprim_tpu.native).
+"""The host PLY parser and Morton sort of ``native/volprim_native.cpp``,
+built at first use (volprim_tpu.native).
 
 The unchanged C++ source is compiled with ``g++`` into
 ``build/native/volprim_native_<hash><ext>`` under the repository root (a
 directory ``.gitignore`` lists; the hash covers the source and the
-interpreter) and imported from there. It is a host parser, not a device
-kernel. Without a compiler, or for files it cannot read (ASCII PLYs), the
+interpreter) and imported from there. Both are host code, not device
+kernels. Without a compiler, or for files it cannot read (ASCII PLYs), the
 callers fall back to numpy.
 """
 
@@ -20,6 +20,7 @@ import sysconfig
 from pathlib import Path
 
 import numpy as np
+import torch
 
 SOURCE = Path(__file__).resolve().parent.parent / "native" / "volprim_native.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "native"
@@ -73,3 +74,17 @@ def parse_ply_columns(path: str):
         return None
     mat = np.frombuffer(blob, dtype=np.float32).reshape(n_props, n_verts)
     return {name: mat[j] for j, name in enumerate(names)}
+
+
+def morton_argsort(centers):
+    """Stable argsort of the 30-bit Morton codes of positions [N, 3] (the
+    native module's codes and radix sort) as int64 numpy, or None without
+    the native module."""
+    mod = get()
+    if mod is None:
+        return None
+    if isinstance(centers, torch.Tensor):
+        centers = centers.detach().cpu().numpy()
+    c = np.ascontiguousarray(np.asarray(centers, np.float32))
+    perm = mod.radix_argsort(mod.morton_codes(c.tobytes()))
+    return np.frombuffer(perm, dtype=np.uint32).astype(np.int64)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Union
 
 import numpy as np
 import torch
@@ -147,6 +148,9 @@ class EnvironmentMap:
         x = torch.clamp((u * w).to(torch.int64), 0, w - 1)
         y = torch.clamp((v * h).to(torch.int64), 0, h - 1)
         return self._pdf_uv(y, x, v)
+
+
+Emitter = Union[ConstantEmitter, EnvironmentMap]
 
 
 def procedural_sky(h: int = 128, w: int = 256, device=None) -> EnvironmentMap:

@@ -38,6 +38,11 @@ def gaussian_q_min(coeffs: QuadricCoeffs) -> torch.Tensor:
     return torch.clamp(c - (b * b) / a, min=0.0)
 
 
+def gaussian_peak_response(coeffs: QuadricCoeffs) -> torch.Tensor:
+    """Unnormalized kernel value at the ray's peak point, exp(-q_min / 2)."""
+    return torch.exp(-0.5 * gaussian_q_min(coeffs))
+
+
 def gaussian_eval_q(q: torch.Tensor) -> torch.Tensor:
     """Unnormalized Gaussian kernel value at Mahalanobis^2 = q."""
     return torch.exp(-0.5 * q)

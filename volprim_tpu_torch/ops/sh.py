@@ -72,3 +72,12 @@ def eval_basis(d: torch.Tensor, degree: int) -> torch.Tensor:
     return torch.stack(
         basis_columns(d[..., 0], d[..., 1], d[..., 2], degree, _C0), dim=-1
     )
+
+
+def eval_emission(sh_coeffs: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """3DGS-style emission: the basis at ``d`` [..., 3] against the
+    coefficients ``sh_coeffs`` [..., K, 3] (basis-major), plus the 0.5 DC
+    offset, clamped at 0. Returns [..., 3]."""
+    basis = eval_basis(d, degree_from_coeffs(sh_coeffs.shape[-2]))  # [..., K]
+    emission = torch.sum(basis[..., :, None] * sh_coeffs, dim=-2)
+    return torch.clamp(emission + 0.5, min=0.0)

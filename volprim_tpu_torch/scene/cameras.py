@@ -1,5 +1,5 @@
-"""Camera records, their JSON / KRT loaders and primary-ray generation
-(volprim_tpu.scene.cameras).
+"""Camera records, their JSON / KRT / COLMAP loaders and primary-ray
+generation (volprim_tpu.scene.cameras).
 
 Mitsuba convention: the camera's local +x points image-left, +y image-up,
 +z along the view direction; pixel (0, 0) is the top-left of the film.
@@ -13,10 +13,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import List, Optional
 
 import numpy as np
 import torch
+
+from . import colmap as colmap_loader
 
 
 def fov2focal(fov_deg: float, width: int) -> float:
@@ -97,6 +100,21 @@ class CameraSpecs:
             self.fov = focal2fov(self.focal_length, self.width)
         elif self.focal_length is None:
             self.focal_length = fov2focal(self.fov, self.width)
+
+    def viewmat(self) -> np.ndarray:
+        """World-to-camera matrix in the GSplat convention (x right, y down)."""
+        flip = np.diag([-1.0, -1.0, 1.0, 1.0])
+        return np.linalg.inv(self.to_world @ flip)
+
+    def K(self) -> np.ndarray:
+        """Intrinsics matrix, the principal point at the film's center."""
+        return np.array(
+            [
+                [self.focal_length, 0.0, self.width / 2.0],
+                [0.0, self.focal_length, self.height / 2.0],
+                [0.0, 0.0, 1.0],
+            ]
+        )
 
     def scaled(self, factor: float) -> "CameraSpecs":
         """A copy with the film, focal length and principal-point offsets
@@ -266,5 +284,58 @@ class KRTCameraSpecsIO:
                 name=sensor["cameraId"], width=int(2 * px), height=int(2 * py),
                 to_world=np.asarray(sensor["T"]), focal_length=k_mat[0, 0],
                 k1=k1, k2=k2, k3=k3, k4=k4,
+            ))
+        return infos
+
+
+# (fx, cx, cy) and the distortion fields by COLMAP camera model: the index
+# of each parameter in the model's list
+_COLMAP_PARAMS = {
+    "SIMPLE_PINHOLE": dict(fx=0, cx=1, cy=2),
+    "PINHOLE": dict(fx=0, cx=2, cy=3),
+    "SIMPLE_RADIAL": dict(fx=0, cx=1, cy=2, k1=3),
+    "RADIAL": dict(fx=0, cx=1, cy=2, k1=3, k2=4),
+    "OPENCV": dict(fx=0, cx=2, cy=3, k1=4, k2=5, p1=6, p2=7),
+    "OPENCV_FISHEYE": dict(fx=0, cx=2, cy=3, k1=4, k2=5, k3=6, k4=7),
+    "FULL_OPENCV": dict(fx=0, cx=2, cy=3, k1=4, k2=5, p1=6, p2=7, k3=8, k4=9, k5=10, k6=11),
+}
+
+
+class ColmapCameraSpecsIO:
+    """COLMAP ``sparse/0`` model loader: binary files, or the text ones
+    where the binary ones are missing. The principal point is stored as
+    the offset ``width / 2 - cx`` (and likewise y)."""
+
+    @staticmethod
+    def load(path: str) -> List[CameraSpecs]:
+        base = os.path.join(path, "sparse", "0")
+        try:
+            extr = colmap_loader.read_extrinsics_binary(os.path.join(base, "images.bin"))
+            intr = colmap_loader.read_intrinsics_binary(os.path.join(base, "cameras.bin"))
+        except (FileNotFoundError, OSError):
+            extr = colmap_loader.read_extrinsics_text(os.path.join(base, "images.txt"))
+            intr = colmap_loader.read_intrinsics_text(os.path.join(base, "cameras.txt"))
+
+        infos = []
+        for key in extr:
+            e = extr[key]
+            i = intr[e.camera_id]
+            layout = _COLMAP_PARAMS.get(i.model)
+            if layout is None:
+                raise ValueError(f"COLMAP camera model not handled: {i.model}")
+            v = {name: i.params[j] for name, j in layout.items()}
+            dist = {k: v.get(k, 0.0) for k in ("k1", "k2", "k3", "k4", "k5", "k6", "p1", "p2")}
+
+            # COLMAP's world-to-camera (x right, y down) -> Mitsuba to_world
+            rot = colmap_loader.qvec2rotmat(e.qvec).T
+            to_cam = np.eye(4)
+            to_cam[:3, :3] = rot * np.array([-1.0, -1.0, 1.0])
+            to_cam[3, :3] = np.asarray(e.tvec) * np.array([-1.0, -1.0, 1.0])
+            to_world = np.linalg.inv(to_cam).T
+
+            infos.append(CameraSpecs(
+                name=e.name.replace(".", "_"), width=i.width, height=i.height,
+                to_world=to_world, focal_length=v["fx"],
+                cx=i.width / 2.0 - v["cx"], cy=i.height / 2.0 - v["cy"], **dist,
             ))
         return infos

@@ -24,3 +24,7 @@ def time_operation(label: str):
     t0 = time.perf_counter()
     yield
     print(f"{label}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+# the reference's name (volprim.utils.concatenate_tensors)
+concatenate_tensors = concatenate_images
