@@ -267,9 +267,32 @@ PyTorch, no kernel of its own but the walk's under walk_backend="pallas"):
     layout (11 train and 1 test frames, images as .png and .npy, the
     points), finite images in [0, inf), the transforms equal to the rig's.
 
+Then data parallelism (volprim_tpu_torch.parallel: ranks are processes,
+each rendering its block of tiles or rays; the compositor kernels of
+phases 4 and 7 run on the blocks):
+
+37. data_parallel (one line a rank): this process renders the TRAIN frame
+    and the HEADLINE frame of the headline scene (2 spp, jittered) and
+    takes train.train_step (TRAIN, L1 against a zero image) and the
+    dryrun's batch-sensor step (render_batch with rf.radiance on the
+    refine CLI's 8 cameras of 64^2, parallel.sharded_grad_step,
+    BoundedAdam) twice each as a single process, then starts DP_WORLD = 2
+    ranks of this script with gloo on the one card (chip_smoke.py
+    --dp_rank R; NCCL refuses two ranks on one device), then one NCCL
+    rank; each loads the kernels phase 2 built and does the same on the
+    mesh: the TRAIN frame bit-identical, the HEADLINE frame (budget
+    classes chosen per block) above 25 dB from the single process's,
+    every gradient within DP_GRAD_RTOL in norm and the opacities per
+    element, the parameters after each step equal on every rank, both
+    kernels launched; per rank the frames' and steps' times (CUDA
+    events), the all-gather and all-reduce alone at the frame's and the
+    steps' sizes, the launches and peak memory. A rank that fails or
+    outlasts DP_TIMEOUT fails the run.
+
 Then the total seconds, a JSON line with each kernel's numbers (the walk's
 with its launches, kernel ms and bound on the sequential, cluster,
-coeff_gemm, surface-capped and radiance-cache paths), the card's
+coeff_gemm, surface-capped and radiance-cache paths; the compositors' with
+the launches of phase 37's ranks, by backend and rank), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero. There is no CPU mode: without a CUDA card it exits with an
 error. ``--out DIR`` also writes the details and torch.profiler tables of
@@ -286,6 +309,7 @@ import json
 import math
 import os
 import re
+import socket as socketlib
 import subprocess
 import sys
 import time
@@ -3333,10 +3357,362 @@ def generate_dataset_cli(ply, exact_s, dev, details) -> dict:
     return res
 
 
+# ---- 37. data parallelism: ranks on the one card --------------------------
+
+# W gloo ranks share the one card (NCCL refuses two ranks on one device;
+# gloo moves CUDA tensors through the host); then one NCCL rank runs the
+# same code, the path a multi-card host takes
+DP_WORLD, DP_TIMEOUT, DP_SEED = 2, 600, 5
+DP_DIR = os.path.join("build", "chip_smoke_dp")
+# the dryrun's batch-sensor step (__graft_entry__.dryrun_multichip: rf at
+# max_depth 8, L1 against a zero image, BoundedAdam at lr 1e-2 with bounded
+# opacities) on the headline scene at the refine CLI's 8 cameras of 64^2
+# (phase 25); rf's chunk is the port's default (the dryrun's 64 is sized
+# for its 64-primitive scene)
+DP_BATCH_RF = dict(max_depth=8)
+DP_CAMS, DP_CAM_SCALE = 8, 0.125
+# The sharded gradients against the single process's. Every gradient
+# within DP_GRAD_RTOL in norm (||g - g1|| <= DP_GRAD_RTOL ||g1||); the
+# opacities, the parameter of test_sharding.py's gradient test, also per
+# element at its rtol and atol (the atol raised to twice the largest
+# deviation of two single-process steps from each other, where their sums
+# are not reproducible). The other elements are not held one by one: the
+# ranks sum their blocks' parts before the all-reduce, in another order
+# than one process: centers, scales and quats sum cancelling f32 terms,
+# the SH rows' gradients are bf16 sums (on an H100 80GB HBM3 at the
+# headline scene, two ranks: single elements up to 1.1e-4 of the largest
+# scale gradient and 0.30% of the largest SH gradient, 5.1e-6 and 3.5e-4
+# in norm).
+DP_GRAD_RTOL, DP_GRAD_ATOL = 1e-3, 1e-8
+DP_PSNR_DB = 25.0
+
+
+def headline_camera():
+    """bench.py's headline camera at WIDTH^2."""
+    from volprim_tpu_torch.scene import CameraSpecs, look_at
+
+    return CameraSpecs(name="bench", width=WIDTH, height=WIDTH,
+                       to_world=look_at([0, 0.4, -3.2], [0, 0, 0], [0, 1, 0]), fov=50.0)
+
+
+def dp_train_step(scene, camera, mesh):
+    """train.train_step (TRAIN, 1 spp, L1 against a zero image,
+    make_optimizer's BoundedAdam) on fresh copies of the scene's five
+    parameters, replicated over ``mesh``: (loss, gradients, parameters
+    after the step)."""
+    from volprim_tpu_torch import interop, parallel, train
+    from volprim_tpu_torch.models import rf_tiled
+
+    params = {k: (getattr(scene, k) if hasattr(scene, k) else scene.attrs[k]).clone()
+              for k in interop.TRAIN_KEYS}
+    parallel.replicate(mesh, params)
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    zero = torch.zeros((camera.height, camera.width, 3), device=scene.device)
+    loss = train.train_step(params, train.make_optimizer(), zero, [camera],
+                            rf_tiled.RFTiledConfig(**TRAIN), spp=1, seed=0, base=scene,
+                            mesh=mesh)[0]
+    return (loss, {k: p.grad for k, p in params.items()},
+            {k: p.detach() for k, p in params.items()})
+
+
+def dp_batch_step(scene, cameras, mesh):
+    """The dryrun's batch-sensor step on ``mesh``: render_batch with
+    rf.radiance, L1, parallel.sharded_grad_step, BoundedAdam: (loss,
+    gradients, parameters after the step)."""
+    from volprim_tpu_torch import models, parallel
+    from volprim_tpu_torch.models import rf
+    from volprim_tpu_torch.optim import BoundedAdam, l1
+    from volprim_tpu_torch.scene import EllipsoidScene
+
+    dev = scene.device
+    params = {"opacities": scene.attrs["opacities"].clone(),
+              "sh_coeffs": scene.attrs["sh_coeffs"].clone(), "centers": scene.centers.clone()}
+    parallel.replicate(mesh, params)
+    cfg = rf.RFConfig(**DP_BATCH_RF)
+    ref = torch.zeros((cameras[0].height, len(cameras) * cameras[0].width, 3), device=dev)
+
+    def loss_fn(p):
+        s = EllipsoidScene(p["centers"], scene.scales, scene.quats,
+                           {"opacities": p["opacities"], "sh_coeffs": p["sh_coeffs"]},
+                           scene.extent)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return l1(ref, models.render_batch(s, cameras, rf.radiance, cfg, None, spp=1,
+                                           generator=gen, mesh=mesh))
+
+    loss, grads = parallel.sharded_grad_step(loss_fn, mesh)(params)
+    opt = BoundedAdam(lr=1e-2)
+    opt.set_bounds("opacities", lower=1e-6, upper=1.0 - 1e-6)
+    opt.step(params, grads)
+    return loss, grads, params
+
+
+def dp_batch_cameras():
+    from volprim_tpu_torch.examples import refine_3dg_dataset as refine
+    from volprim_tpu_torch.scene import synthetic
+
+    return refine.select_cameras(synthetic.orbit_cameras(WIDTH, DP_CAMS), DP_CAMS, DP_CAM_SCALE)
+
+
+def grad_dev(got, want, floor: float = 0.0) -> dict:
+    """``got`` against ``want``: the largest deviation, alone and over
+    want's largest |value|, and the elements outside rtol DP_GRAD_RTOL and
+    atol max(DP_GRAD_ATOL, 2 ``floor``), ``floor`` the largest deviation
+    of two single-process runs from each other."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    atol = max(DP_GRAD_ATOL, 2.0 * floor)
+    bad = diff > DP_GRAD_RTOL * want.abs() + atol
+    return {"max_dev": float(diff.max()),
+            "max_dev_share": float(diff.max()) / max(float(want.abs().max()), 1e-30),
+            "norm_dev": float(torch.linalg.vector_norm(got - want))
+            / max(float(torch.linalg.vector_norm(want)), 1e-30),
+            "atol": atol, "outside": int(bad.sum()), "elements": want.numel()}
+
+
+def dp_rank(args) -> None:
+    """One rank of phase 37 (chip_smoke.py --dp_rank R --dp_world W
+    --dp_port P --dp_backend gloo|nccl): join the group, render and step on
+    the mesh against the parent's single-process results in DP_DIR, and
+    write what it measured there as rank<R>_<backend>.json."""
+    torch.set_num_threads(2)
+    if not torch.cuda.is_available():
+        fail("no CUDA card")
+    import torch.distributed as dist
+
+    from volprim_tpu_torch import parallel
+    from volprim_tpu_torch.kernels import _build, composite3
+    from volprim_tpu_torch.models import rf_tiled
+    from volprim_tpu_torch.scene import synthetic
+
+    for name in ("composite3_fwd", "composite3_bwd"):  # built by the parent (phase 2)
+        if not _build.library_path(name).exists():
+            fail(f"{name} is not built")
+        _build.load(name)
+    rank, world, backend = args.dp_rank, args.dp_world, args.dp_backend
+    if not parallel.init_multihost(f"127.0.0.1:{args.dp_port}", world, rank, timeout_s=300,
+                                   backend=backend):
+        fail(f"rank {rank} could not join the {backend} group")
+    mesh = parallel.data_mesh("cuda")
+    dev = mesh.device
+    ref = torch.load(os.path.join(DP_DIR, "reference.pt"), map_location=dev)
+    torch.cuda.reset_peak_memory_stats(dev)  # (after the first allocation on dev)
+    floor = ref.pop("floor")
+    scene = synthetic.make_scene(N_PRIMS, device=dev)
+    camera = headline_camera()
+    fwd, bwd = composite3.composite_tiles3, composite3.composite_tiles3_bwd
+    res = dict(backend=backend, world=world, rank=rank, device=str(dev))
+
+    def counted(fn):
+        fwd.launches = bwd.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, fwd.launches, bwd.launches
+
+    cfg_t, cfg_h = rf_tiled.RFTiledConfig(**TRAIN), rf_tiled.RFTiledConfig(**HEADLINE)
+    state_t, state_h = rf_tiled.build_state(scene, cfg_t), rf_tiled.build_state(scene, cfg_h)
+    seeds = iter(range(1000, 2000))
+    with torch.no_grad():
+        for tag, state, cfg in (("train", state_t, cfg_t), ("headline", state_h, cfg_h)):
+            img, n_fwd, _ = counted(lambda: rf_tiled.render_state(
+                state, camera, cfg, None, spp=SPP, seed=DP_SEED, mesh=mesh))
+            want = ref[f"{tag}_frame"]
+            res[f"{tag}_frame"] = dict(
+                bitwise=bool(torch.equal(img, want)),
+                max_abs=float((img - want).abs().max()), psnr_db=psnr_db(img, want),
+                launches=n_fwd, finite=bool(torch.isfinite(img).all()),
+                ms=cuda_times(lambda: rf_tiled.render_state(
+                    state, camera, cfg, None, spp=SPP, seed=next(seeds), mesh=mesh), 5, 1))
+    # the collectives alone, at the frame's and the step's sizes
+    n_tiles = (WIDTH * WIDTH) // TRAIN["tile_pixels"]
+    blk = torch.zeros((n_tiles // mesh.size, TRAIN["tile_pixels"], 3), device=dev)
+    res["gather_frame_ms"] = cuda_ms(lambda: parallel.gather_blocks(mesh, blk), 10)
+    (loss, grads, params), n_fwd, n_bwd = counted(lambda: dp_train_step(scene, camera, mesh))
+    bufs = [g.clone() for g in grads.values()]
+    res["sum_grads_step_ms"] = cuda_ms(lambda: parallel.sum_grads(mesh, bufs), 5)
+    del bufs
+    res["train_step"] = dict(
+        loss=float(loss), loss_ref=float(ref["train_loss"]), launches_fwd=n_fwd,
+        launches_bwd=n_bwd,
+        grads={k: grad_dev(g, ref[f"train_grad_{k}"], floor[f"train_{k}"])
+               for k, g in grads.items()},
+        params_max_dev={k: float((p - ref[f"train_param_{k}"]).abs().max())
+                        for k, p in params.items()},
+        params_equal_across_ranks=dp_replicas_equal(mesh, params),
+        ms=cuda_times(lambda: dp_train_step(scene, camera, mesh), 3, 1))
+    del grads, params
+    cams = dp_batch_cameras()
+    t0 = time.perf_counter()
+    loss, grads, params = dp_batch_step(scene, cams, mesh)
+    torch.cuda.synchronize()
+    res["batch_step"] = dict(
+        loss=float(loss), loss_ref=float(ref["batch_loss"]),
+        grads={k: grad_dev(g, ref[f"batch_grad_{k}"], floor[f"batch_{k}"])
+               for k, g in grads.items()},
+        params_max_dev={k: float((p - ref[f"batch_param_{k}"]).abs().max())
+                        for k, p in params.items()},
+        params_equal_across_ranks=dp_replicas_equal(mesh, params),
+        s=time.perf_counter() - t0)
+    film = torch.zeros((cams[0].height, DP_CAMS * cams[0].width, 4), device=dev)
+    res["sum_film_batch_ms"] = cuda_ms(lambda: parallel.sum_parts(mesh, film), 5)
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    with open(os.path.join(DP_DIR, f"rank{rank}_{backend}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def dp_replicas_equal(mesh, params) -> bool:
+    """Every tensor of ``params`` equal to rank 0's, on this rank."""
+    import torch.distributed as dist
+
+    same = True
+    for p in params.values():
+        p0 = p.detach().clone()
+        dist.broadcast(p0, 0, group=mesh.group)
+        same = same and bool(torch.equal(p0, p))
+    return same
+
+
+def dp_launch(backend: str, world: int) -> list:
+    """Start ``world`` ranks of this script on the card, wait for them all
+    (DP_TIMEOUT, a failed rank ends the others) and read their results."""
+    with socketlib.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(DP_DIR, f"rank{r}_{backend}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp_rank", str(r), "--dp_world",
+             str(world), "--dp_port", str(port), "--dp_backend", backend],
+            stdout=log, stderr=subprocess.STDOUT, env=env), log))
+    deadline = time.perf_counter() + DP_TIMEOUT
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            failed = [r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(DP_DIR, f"rank{r}_{backend}.log")) as f:
+                tail = f.read()[-3000:]
+            fail(f"data_parallel: {backend} rank {r} of {world} exited {p.returncode} "
+                 f"(timeout {DP_TIMEOUT} s):\n{tail}")
+    rows = []
+    for r in range(world):
+        with open(os.path.join(DP_DIR, f"rank{r}_{backend}.json")) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def data_parallel(scene, details) -> dict:
+    """Phase 37: the headline scene's frames and steps on W = DP_WORLD gloo
+    ranks sharing the card, then on one NCCL rank, against this process's
+    single-process results: the TRAIN frame bit for bit, the HEADLINE
+    frame (budget classes chosen per block) above DP_PSNR_DB, the train
+    step's and the batch-sensor step's gradients within DP_GRAD_RTOL, the
+    parameters after each step equal on every rank. Prints one line a
+    rank; returns the compositor launches the ranks made."""
+    from volprim_tpu_torch.models import rf_tiled
+
+    t_phase = time.perf_counter()
+    os.makedirs(DP_DIR, exist_ok=True)
+    camera = headline_camera()
+    ref = {}
+    with torch.no_grad():
+        for tag, kw in (("train", TRAIN), ("headline", HEADLINE)):
+            cfg = rf_tiled.RFTiledConfig(**kw)
+            ref[f"{tag}_frame"] = rf_tiled.render_state(rf_tiled.build_state(scene, cfg), camera,
+                                                        cfg, None, spp=SPP, seed=DP_SEED)
+    # each step twice: the second run's deviation from the first (the
+    # scatter-adds' order) sets each gradient's absolute floor
+    floor, single = {}, {}
+    cams = dp_batch_cameras()
+    for tag, step in (("train", lambda: dp_train_step(scene, camera, None)),
+                      ("batch", lambda: dp_batch_step(scene, cams, None))):
+        t0 = time.perf_counter()
+        loss, grads, params = step()
+        torch.cuda.synchronize()
+        single[f"{tag}_step_s"] = time.perf_counter() - t0
+        again = step()[1]
+        ref[f"{tag}_loss"] = loss
+        for k, g in grads.items():
+            ref[f"{tag}_grad_{k}"], ref[f"{tag}_param_{k}"] = g, params[k]
+            floor[f"{tag}_{k}"] = grad_dev(again[k], g)["max_dev"]
+        del grads, params, again
+    # the single process's times beside the ranks' (CUDA events, as there)
+    seeds = iter(range(1000, 2000))
+    with torch.no_grad():
+        for tag, kw in (("train", TRAIN), ("headline", HEADLINE)):
+            cfg = rf_tiled.RFTiledConfig(**kw)
+            state = rf_tiled.build_state(scene, cfg)
+            single[f"{tag}_frame_ms"] = cuda_times(lambda: rf_tiled.render_state(
+                state, camera, cfg, None, spp=SPP, seed=next(seeds)), 5, 1)
+            del state
+    single["train_step_ms"] = cuda_times(lambda: dp_train_step(scene, camera, None), 3, 1)
+    torch.save({**{k: v.detach().cpu() for k, v in ref.items()}, "floor": floor},
+               os.path.join(DP_DIR, "reference.pt"))
+    del ref
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    runs = {"gloo": dp_launch("gloo", DP_WORLD), "nccl": dp_launch("nccl", 1)}
+    problems = []
+    for backend, rows in runs.items():
+        for row in rows:
+            phase("data_parallel", **row)
+            who = f"{backend} rank {row['rank']} of {row['world']}"
+            if not (row["train_frame"]["bitwise"] and row["train_frame"]["finite"]):
+                problems.append(f"{who}: the TRAIN frame differs from the single process's "
+                                f"(max {row['train_frame']['max_abs']})")
+            if not row["headline_frame"]["psnr_db"] > DP_PSNR_DB:
+                problems.append(f"{who}: HEADLINE frame {row['headline_frame']['psnr_db']} dB")
+            for step in ("train_step", "batch_step"):
+                s = row[step]
+                bad = {k: v for k, v in s["grads"].items()
+                       if not v["norm_dev"] <= DP_GRAD_RTOL
+                       or (k == "opacities" and v["outside"])}
+                if bad:
+                    problems.append(f"{who}: {step} gradients off the single process's: {bad}")
+                if not s["params_equal_across_ranks"]:
+                    problems.append(f"{who}: {step} parameters differ across ranks")
+            ts = row["train_step"]
+            if not (row["train_frame"]["launches"] and ts["launches_fwd"]
+                    and ts["launches_bwd"]):
+                problems.append(f"{who}: a compositor kernel was not launched")
+    res = dict(single_process=single, single_vs_single_max_dev=floor,
+               seconds=round(time.perf_counter() - t_phase, 2),
+               launches_fwd={b: [r_["train_frame"]["launches"] + r_["headline_frame"]["launches"]
+                                 + r_["train_step"]["launches_fwd"] for r_ in rows]
+                             for b, rows in runs.items()},
+               launches_bwd={b: [r_["train_step"]["launches_bwd"] for r_ in rows]
+                             for b, rows in runs.items()})
+    phase("data_parallel_total", **res)
+    details["data_parallel"] = dict(res, runs=runs)
+    if problems:
+        fail("data_parallel: " + "; ".join(problems))
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="directory for details and a profiler table")
+    # one rank of phase 37, started by the phase itself (dp_launch)
+    ap.add_argument("--dp_rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_backend", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dp_rank is not None:
+        dp_rank(args)
+        return
     if not torch.cuda.is_available():
         fail("no CUDA card (torch.cuda.is_available() is False); the port's "
              "kernels have no CPU mode here")
@@ -3418,10 +3794,7 @@ def main() -> None:
     t0 = time.perf_counter()
     scene = synthetic.make_scene(N_PRIMS, device=dev)
     cfg = rf_tiled.RFTiledConfig(**HEADLINE)
-    camera = CameraSpecs(
-        name="bench", width=WIDTH, height=WIDTH,
-        to_world=look_at([0, 0.4, -3.2], [0, 0, 0], [0, 1, 0]), fov=50.0,
-    )
+    camera = headline_camera()
     state = rf_tiled.build_state(scene, cfg)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -3906,6 +4279,8 @@ def main() -> None:
     rad = radiosity_fit(ffwalk, dev, details, args.out)
     sh_fit_visualizer(rad["cache"], rad["mesh"], dev, details)
     generate_dataset_cli(asset_ply, exact_s, dev, details)
+    # ---- 37. data parallelism: gloo ranks on the card, one NCCL rank -----
+    dp = data_parallel(scene, details)
     new_walks = {"sequential": paths["sequential_pallas"]["walk"],
                  "clusters": paths["clusters_pallas"]["walk"],
                  "coeff_gemm": paths["coeff_gemm_pallas"]["walk"], "surfaces": surf["walk"],
@@ -3976,6 +4351,7 @@ def main() -> None:
         "ms_cli_render": cli["render_tiled"]["fwd_ms"],
         "plain_ms_cli_render": cli["render_tiled"]["fwd_plain_ms"],
         "bound_ms_cli_render": cli["render_tiled"]["fwd_bound_ms"],
+        "launches_data_parallel": dp["launches_fwd"],
         "launches_cli_refine": cli["refine_gaussian"]["launches_fwd"],
         "ms_cli_refine": cli["refine_gaussian"]["fwd_ms"],
         "plain_ms_cli_refine": cli["refine_gaussian"]["fwd_plain_ms"],
@@ -3997,6 +4373,7 @@ def main() -> None:
         "plain_ms_band": band_step["plain_ms"],
         "bound_ms_band": band_step["bwd_bound_ms"],
         "bound_by_band": band_step["bwd_bound_by"],
+        "launches_data_parallel": dp["launches_bwd"],
         "launches_cli_refine": cli["refine_gaussian"]["launches_bwd"],
         "ms_cli_refine": cli["refine_gaussian"]["bwd_ms"],
         "plain_ms_cli_refine": cli["refine_gaussian"]["bwd_plain_ms"],

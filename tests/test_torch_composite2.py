@@ -1,7 +1,9 @@
 """The port's camera-relative v2 tile compositor (kernels/composite2.py)
 against the JAX package.
 
-The camera-relative column table (from the primitives) against JAX's; then the same numpy-made inputs (those of
+The camera-relative column table (from the primitives, and from the scene
+features with its vector-Jacobian product) against JAX's; then the same
+numpy-made inputs (those of
 test_torch_composite.tile_inputs, seen from the same origin) go through the
 JAX kernels in interpret mode (``composite2.composite_tiles2`` and its
 ``jax.vjp``) and the port's plain versions, at SH degrees 0 and 1, under a
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from volprim_tpu import scene as jscene
+from volprim_tpu.ops import quadric as jquadric
 from volprim_tpu.pallas_kernels import composite2 as jcomp2
 from volprim_tpu_torch.kernels import composite2 as tcomp2
 from volprim_tpu_torch.scene.ellipsoids import EllipsoidScene
@@ -75,6 +78,28 @@ def test_camera_relative_features_match_jax():
     want = np.asarray(jcomp2.camera_relative_features_from_prims(_jax_scene(x), jnp.asarray(o)))
     got = tcomp2.camera_relative_features_from_prims(prims, o).numpy()
     _assert_columns_close(got, want, 1e-5)
+
+
+def test_camera_relative_features_from_scene_features_match_jax():
+    """composite2.camera_relative_features (from the [N, 16] scene features
+    and the origin) and its vector-Jacobian product in both arguments
+    against JAX's and jax.vjp, each column within 1e-5 of its largest."""
+    x = tile_inputs(2)
+    feats = np.zeros((x["centers"].shape[0], 16), np.float32)
+    feats[:, :10] = np.asarray(jquadric.prim_features(
+        jnp.asarray(x["centers"]), jnp.asarray(x["scales"]), jnp.asarray(x["quats"]))).T
+    cot = np.random.default_rng(2).normal(size=feats.shape).astype(np.float32)
+    want, vjp = jax.vjp(jcomp2.camera_relative_features, jnp.asarray(feats),
+                        jnp.asarray(ORIGIN, jnp.float32))
+    g_feats_j, g_o_j = vjp(jnp.asarray(cot))
+    f_t = torch.tensor(feats, requires_grad=True)
+    o_t = torch.tensor(ORIGIN, dtype=torch.float32, requires_grad=True)
+    got = tcomp2.camera_relative_features(f_t, o_t)
+    got.backward(torch.from_numpy(cot))
+    _assert_columns_close(got.detach().numpy(), np.asarray(want), 1e-5)
+    _assert_columns_close(f_t.grad.numpy()[:, :10], np.asarray(g_feats_j)[:, :10], 1e-5)
+    assert not f_t.grad[:, 10:].any() and not np.asarray(g_feats_j)[:, 10:].any()
+    _assert_columns_close(o_t.grad.numpy()[None], np.asarray(g_o_j)[None], 1e-5)
 
 
 def _assert_columns_close(got, want, tol):

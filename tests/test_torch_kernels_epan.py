@@ -141,10 +141,13 @@ def test_unknown_kernel_type_raises():
 
 
 def test_refusals_name_their_roadmap_items():
-    """What stays unported names the ROADMAP.md item that ports it: the
-    device mesh (§A7); the TPU layout knobs have no counterpart (§D). The
-    path tracer's general walk and the tent filter are ported: an
-    Epanechnikov medium renders through the tent filter."""
+    """What stays unported names the ROADMAP.md item that records it: the
+    TPU layout knobs have no counterpart (§D). The device mesh (§A7), the
+    path tracer's general walk and the tent filter are ported: a mesh
+    whose ranks do not divide the tiles raises as JAX asserts, and an
+    Epanechnikov medium renders through the tent filter, on a one-rank
+    mesh as without one."""
+    from volprim_tpu_torch import parallel
     from volprim_tpu_torch.models import base, prb, rf_tiled
     from volprim_tpu_torch.ops import envmap
     from volprim_tpu_torch.scene import CameraSpecs, look_at, synthetic
@@ -154,17 +157,22 @@ def test_refusals_name_their_roadmap_items():
     cam = CameraSpecs(name="c", width=16, height=16, fov=50.0,
                       to_world=look_at([0, 0.4, -3.2], [0, 0, 0], [0, 1, 0]))
     cfg = rf_tiled.RFTiledConfig(tile_pixels=64, max_candidates=256, segment=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A7"):
-        rf_tiled.render_state(rf_tiled.build_state(s, cfg), cam, cfg, mesh=object())
-    gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A7"):
-        base.render(s, cam, lambda *a: None, None, None, 1, gen, mesh=object())
+    with pytest.raises(ValueError, match="not divisible"):
+        rf_tiled.render_state(rf_tiled.build_state(s, cfg), cam, cfg,
+                              mesh=parallel.Mesh(0, 3, torch.device("cpu")))
     medium = synthetic.make_medium(256, device="cpu")
-    img = base.render(medium, synthetic.medium_camera(8, 8), prb.radiance,
-                      prb.PRBConfig(kernel_type="epanechnikov", walk_backend="pallas",
-                                    bounce_cap=4),
-                      envmap.ConstantEmitter(radiance=torch.ones(3)), 1, gen, rfilter="tent")
+    imgs = []
+    for mesh in (None, parallel.data_mesh("cpu")):
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        imgs.append(base.render(
+            medium, synthetic.medium_camera(8, 8), prb.radiance,
+            prb.PRBConfig(kernel_type="epanechnikov", walk_backend="pallas", bounce_cap=4),
+            envmap.ConstantEmitter(radiance=torch.ones(3)), 1, gen, rfilter="tent",
+            mesh=mesh))
+    img = imgs[0]
     assert bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
+    assert torch.equal(imgs[1], img)
     for argv in (["--feat_major"], ["--kernel_batch", "2"]):
         with pytest.raises(SystemExit, match="ROADMAP.md §D"):
             profile_rf.main(["--cpu", *argv])

@@ -20,7 +20,7 @@ import torch
 from test_torch_ffwalk import both_scenes, cloud_arrays, one_torch_thread, rays  # noqa: F401
 from volprim_tpu.models import prb as jprb
 from volprim_tpu.ops import envmap as jenvmap
-from volprim_tpu_torch import as_device, default_device
+from volprim_tpu_torch import as_device, default_device, parallel
 from volprim_tpu_torch.models import base, prb, render
 from volprim_tpu_torch.ops import bsdf, envmap, kernels, quadric
 from volprim_tpu_torch.scene import generate_rays, mesh, synthetic
@@ -244,17 +244,21 @@ def test_render_is_finite_seeded_and_reproducible():
 
 
 def test_unported_options_raise():
-    """What still raises: a device mesh (ROADMAP.md §A7) in the render loop,
-    and a missing generator. The path tracer's options raise no more:
-    test_options_render renders them."""
+    """What still raises: a missing generator. The path tracer's options
+    raise no more (test_options_render renders them), nor does a device
+    mesh (ROADMAP.md §A7, ported): on one rank the render loop draws what
+    it draws without one."""
     ts, sky, cfg = absorbing()
     o, d = same_rays(4)
-    g = torch.Generator()
     with pytest.raises(ValueError, match="Generator"):
         prb.radiance(ts, sky, o, d, cfg)
     cam = synthetic.medium_camera(4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A7"):
-        base.render(ts, cam, prb.radiance, cfg, sky, 2, g, mesh=object())
+    imgs = []
+    for mesh in (None, parallel.data_mesh("cpu")):
+        g = torch.Generator()
+        g.manual_seed(1)
+        imgs.append(base.render(ts, cam, prb.radiance, cfg, sky, 2, g, mesh=mesh))
+    assert torch.equal(imgs[0], imgs[1])
     with pytest.raises(ValueError, match="Generator"):
         base.render(ts, cam, prb.radiance, cfg, sky, 1)
 

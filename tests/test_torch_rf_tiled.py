@@ -18,7 +18,7 @@ from volprim_tpu.accel import tiles as jtiles
 from volprim_tpu.models import rf as jrf
 from volprim_tpu.models import rf_tiled as jrt
 from volprim_tpu.pallas_kernels import composite3 as jcomp
-from volprim_tpu_torch import interop
+from volprim_tpu_torch import interop, parallel
 from volprim_tpu_torch import scene as tscene
 from volprim_tpu_torch.accel import tiles as ttiles
 from volprim_tpu_torch.kernels import composite3 as tcomp
@@ -160,8 +160,15 @@ def test_unported_options_raise(override):
 
 @pytest.mark.parametrize("extra", [dict(backend="fused"), dict(backend="xla")])
 def test_unported_render_arguments_raise(extra):
-    """A device mesh is not ported (ROADMAP.md §A7), on either route."""
+    """The device mesh is ported (ROADMAP.md §A7), on either route: a mesh
+    whose ranks do not divide the tile count raises, as JAX asserts, and a
+    one-rank mesh renders the frame of ``mesh=None`` bit for bit
+    (tests/test_torch_parallel.py shards frames over four ranks)."""
     cfg = trt.RFTiledConfig(**{**HEADLINE_AT_TEST_SIZE, **extra})
     state = trt.build_state(_port_scene(surface_scene(64)), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A7"):
-        trt.render_state(state, _cameras(16, 16)[1], cfg, mesh=object())
+    cam = _cameras(64, 64)[1]
+    with pytest.raises(ValueError, match="not divisible over 3 ranks"):
+        trt.render_state(state, cam, cfg, mesh=parallel.Mesh(0, 3, torch.device("cpu")))
+    img = trt.render_state(state, cam, cfg, spp=2, seed=4)
+    assert torch.equal(trt.render_state(state, cam, cfg, spp=2, seed=4,
+                                        mesh=parallel.data_mesh("cpu")), img)

@@ -34,7 +34,7 @@ def as_device(device=None) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
-from . import accel, kernels, models, ops, optim, scene, utils  # noqa: E402
+from . import accel, kernels, models, ops, optim, parallel, scene, utils  # noqa: E402
 
 # the JAX package's aliases (the reference's volprim.cameras, .io, .optimizers,
 # .benchmark)

@@ -67,6 +67,29 @@ def camera_relative_features_from_prims(prims, origin: torch.Tensor) -> torch.Te
     )
 
 
+def camera_relative_features(feats16: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
+    """[N, 16] scene features (M6, Mc, cMc) and the camera origin o ->
+    [N, 16] camera-relative features (M6, U = Mo - Mc, c0 = o^T M o -
+    2 o.Mc + cMc, zeros). Differentiable in both; c0 cancels where the
+    primitives are small against |o - c|, which
+    :func:`camera_relative_features_from_prims` avoids."""
+    m11, m22, m33 = feats16[:, 0], feats16[:, 1], feats16[:, 2]
+    m12, m13, m23 = 0.5 * feats16[:, 3], 0.5 * feats16[:, 4], 0.5 * feats16[:, 5]
+    mc = feats16[:, 6:9]
+    cmc = feats16[:, 9]
+    ox, oy, oz = origin[0], origin[1], origin[2]
+    mo = torch.stack(
+        [m11 * ox + m12 * oy + m13 * oz, m12 * ox + m22 * oy + m23 * oz,
+         m13 * ox + m23 * oy + m33 * oz],
+        dim=-1,
+    )
+    u = mo - mc
+    c0 = (mo[:, 0] * ox + mo[:, 1] * oy + mo[:, 2] * oz
+          - 2.0 * (mc[:, 0] * ox + mc[:, 1] * oy + mc[:, 2] * oz) + cmc)
+    return torch.cat([feats16[:, 0:6], u, c0[:, None], torch.zeros_like(feats16[:, 10:])],
+                     dim=1)
+
+
 def neutral_row(origin: torch.Tensor) -> torch.Tensor:
     """The inert camera-relative column (M = I, c = 0): a = |d|^2 > 0,
     U = o; its c0 |o|^2 goes into aux, and its opacity is 0."""

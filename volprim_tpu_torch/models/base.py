@@ -8,6 +8,20 @@ one wide film (the reference's batch sensor).
 Randomness comes from one explicit ``torch.Generator`` on the render's
 device: the film jitter and then the radiance function's own draws, sample
 after sample. It does not reproduce ``jax.random`` bits.
+
+With ``mesh`` (a :class:`volprim_tpu_torch.parallel.Mesh` of W ranks, each
+holding the same primitives and a generator in the same state), every rank
+draws the whole wavefront's film jitter from the shared generator, takes
+its contiguous block of the rays (``parallel.shard_rays``), evaluates their
+radiance and splats it into a full-size film of its own; the films' sums
+and weights are then summed over the ranks (``parallel.sum_parts``, whose
+backward passes the cotangent through) before they are developed. On W > 1
+ranks the radiance function draws from a stream of the rank's own
+(``parallel.rank_generator``: seeded from a hash of the shared generator's
+state and the rank, the shared generator not advanced); on one rank it
+draws from the shared generator, as without a mesh. Deterministic integrators (``rf`` without Russian roulette,
+``tomography``) give the single process's image up to the order of the
+film sums; ``prb`` gives an image of the same distribution.
 """
 
 from __future__ import annotations
@@ -19,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops import filters
+from ..parallel.mesh import rank_generator, shard_rays, sum_parts
 from ..scene.cameras import CameraSpecs, film_coords, rays_from_pixels
 from ..scene.ellipsoids import EllipsoidScene
 
@@ -89,27 +104,33 @@ def render(
     jitters drawn one after another, then one radiance call over the
     stacked rays): the estimator is unchanged, memory grows with the group.
     The largest divisor of ``spp`` not above it is used.
+    ``mesh`` shards the wavefront's rays over its ranks (module docstring).
     """
     if generator is None:
         raise ValueError("render needs an explicit torch.Generator on the render's device")
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported (ROADMAP.md §A7)")
     splat = _splat(rfilter)
     dev = primitives.device
     h, w = camera.height, camera.width
     g = max(1, min(int(spp_group), spp))
     while spp % g:
         g -= 1
+    ray_gen = rank_generator(mesh, generator)
     film = Film(torch.zeros((h, w, 3), device=dev), torch.zeros((h, w), device=dev))
     for _ in range(spp // g):
         coords = [film_coords(camera, generator, device=dev) for _ in range(g)]
         px = torch.cat([c[0] for c in coords])
         py = torch.cat([c[1] for c in coords])
+        px, py = shard_rays(mesh, px, py)
         o, d = rays_from_pixels(camera, px, py)
-        radiance = radiance_fn(primitives, emitter, o, d, cfg, generator)
+        radiance = radiance_fn(primitives, emitter, o, d, cfg, ray_gen)
         img, wgt = splat(radiance, px, py, w, h)
         film = Film(film.img + img, film.wgt + wgt)
-    return film.develop()
+    return _develop(mesh, film)
+
+
+def _develop(mesh, film: Film) -> torch.Tensor:
+    """The film summed over the mesh's ranks, developed."""
+    return Film(sum_parts(mesh, film.img), sum_parts(mesh, film.wgt)).develop()
 
 
 def _splat(rfilter: str):
@@ -152,12 +173,11 @@ def render_batch(
     device, splatted as :func:`render` splats for ``rfilter``. Every
     sample draws the jitter of all N films from
     ``generator`` (required, on that device), then evaluates all their rays
-    in one wavefront."""
+    in one wavefront, which ``mesh`` shards over its ranks (module
+    docstring)."""
     if generator is None:
         raise ValueError("render_batch needs an explicit torch.Generator on the render's device")
     splat = _splat(rfilter)
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported (ROADMAP.md §A7)")
     h, w = cameras[0].height, cameras[0].width
     if any((c.height, c.width) != (h, w) for c in cameras):
         raise ValueError("the batch sensor needs cameras of one film size")
@@ -166,15 +186,18 @@ def render_batch(
     px0 = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w).reshape(-1)
     py0 = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w).reshape(-1)
     shift = (torch.arange(n, dtype=torch.float32, device=dev) * w)[:, None]
+    ray_gen = rank_generator(mesh, generator)
     film = Film(torch.zeros((h, n * w, 3), device=dev), torch.zeros((h, n * w), device=dev))
     for _ in range(spp):
         off = torch.rand((n, h * w, 2), generator=generator, device=dev)
         px, py = px0 + off[..., 0], py0 + off[..., 1]
         o, d = batch_rays(cameras, px, py)
-        radiance = radiance_fn(primitives, emitter, o, d, cfg, generator)
-        img, wgt = splat(radiance, (px + shift).reshape(-1), py.reshape(-1), n * w, h)
+        wide_px, wide_py = (px + shift).reshape(-1), py.reshape(-1)
+        o, d, wide_px, wide_py = shard_rays(mesh, o, d, wide_px, wide_py)
+        radiance = radiance_fn(primitives, emitter, o, d, cfg, ray_gen)
+        img, wgt = splat(radiance, wide_px, wide_py, n * w, h)
         film = Film(film.img + img, film.wgt + wgt)
-    return film.develop()
+    return _develop(mesh, film)
 
 
 class _SppGrad(torch.autograd.Function):

@@ -107,7 +107,11 @@ def radiance(
     primitives.require_attrs(["opacities", "sh_coeffs"])
     kern = cfg.kernel
     k = cfg.max_depth if cfg.max_depth > 0 else 256
-    hit_t, hit_id = gather_hits(primitives, o, d, k, cfg.chunk_size)
+    # the hit search only selects (its t values reach no output), so it runs
+    # outside autograd: under it every chunk's [rays, chunk] buffers would be
+    # held until the search ends
+    with torch.no_grad():
+        hit_t, hit_id = gather_hits(primitives, o, d, k, cfg.chunk_size)
     # empty slots (t = inf) may name padding ids; they are masked below
     hit_id = torch.clamp(hit_id, max=primitives.num_prims - 1)
 

@@ -64,6 +64,7 @@ from ..accel import tiles as tiling
 from ..kernels import composite2, composite3, composite_vjp
 from ..ops import quadric, quaternion, sh, srgb_to_linear
 from ..ops.kernels import Kernel
+from ..parallel.mesh import gather_blocks
 from ..scene.cameras import CameraSpecs
 from ..scene.ellipsoids import EllipsoidScene
 from .base import pad_primitives
@@ -339,23 +340,37 @@ def render_state(
     device. Jitter offsets come from a Philox ``torch.Generator`` seeded by
     (``seed``, sample) and drawn for the whole film, so a tile's offsets
     depend only on its global tile id; they are not ``jax.random``'s bits,
-    so parity checks use ``jitter=False`` (pixel centers)."""
+    so parity checks use ``jitter=False`` (pixel centers).
+
+    With ``mesh`` (a :class:`volprim_tpu_torch.parallel.Mesh` of W ranks,
+    each holding the same state), each rank renders its contiguous block of
+    T / W tiles of the block-major layout and an all-gather assembles the
+    frame on every rank (its backward hands a rank its own block's
+    cotangent: parallel/mesh.py). The tile count must divide by W, as JAX
+    asserts. A tile's jitter depends only on its global id, so the frame
+    equals the single process's bit for bit; budget classes, refinement and
+    the coarse cull's strips act per block, as under JAX's ``shard_map``,
+    so frames with budget classes or refinement are statistically equal."""
     _check_config(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "rf_tiled: mesh sharding is not ported yet (ROADMAP.md §A7)"
-        )
     dev = state.cull_centers.device
     px0, py0, tile_ids, unshuffle = _tile_layout(camera, cfg, dev)
+    film_tiles = px0.shape[0]
+    if mesh is not None:
+        if film_tiles % mesh.size:
+            raise ValueError(f"{film_tiles} tiles are not divisible over {mesh.size} ranks")
+        blk = mesh.block(film_tiles)
+        px0, py0, tile_ids = px0[blk], py0[blk], tile_ids[blk]
     acc = _render_tiles(
         state, emitter, px0, py0, tile_ids, camera, cfg=cfg, spp=spp, seed=int(seed),
-        jitter=jitter,
+        jitter=jitter, film_tiles=film_tiles,
     )
-    return unshuffle(acc)
+    return unshuffle(gather_blocks(mesh, acc))
 
 
-def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter):
-    """Cull, gather and composite the tiles. Returns [T, RT, 3]."""
+def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter,
+                  film_tiles):
+    """Cull, gather and composite the tiles ``tile_ids`` of a film of
+    ``film_tiles`` tiles. Returns [T, RT, 3]."""
     dev = px0.device
     f32 = torch.float32
     n_tiles, rt = px0.shape
@@ -396,7 +411,7 @@ def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed,
 
     use_fused = cfg.backend == "fused"
     resort = cfg.prim_resort if cfg.prim_resort is not None else not use_fused
-    shortlist_kw = dict(cfg=cfg, spp=spp, seed=seed, jitter=jitter)
+    shortlist_kw = dict(cfg=cfg, spp=spp, seed=seed, jitter=jitter, film_tiles=film_tiles)
     if not state.clustered:
         # flat culling: every primitive's sphere against every tile cone
         keys = tiling.cone_cull_keys_batch(
@@ -554,7 +569,7 @@ def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed,
             # spp folding: `fold` samples' rays share one shortlist walk
             cols = []
             for j in range(fold):
-                off = _tile_offsets(seed, g * fold + j, tid_b, n_tiles, rt, jitter, dev)
+                off = _tile_offsets(seed, g * fold + j, tid_b, film_tiles, rt, jitter, dev)
                 cols.append(dirs_cols(px_b + off[..., 0], py_b + off[..., 1]))
             dirs = [torch.cat([c[i] for c in cols], dim=1) for i in range(3)]
             d8 = composite3.pack_direction_rows(*dirs)
@@ -686,7 +701,7 @@ def _resort(state, ids, valid, origin, axis, mode):
 
 
 def _render_shortlist(state, emitter, ids, valid, origin, dirs_cols, px0, py0, tile_ids, *,
-                      cfg, spp, seed, jitter):
+                      cfg, spp, seed, jitter, film_tiles):
     """The shortlist backends after the cull (rf_tiled.py:1152-1267): pad the
     primitive shortlist [T, S] to a segment multiple, gather the [T, S, F]
     tables with neutral rows and zero opacity on invalid slots, and
@@ -720,7 +735,7 @@ def _render_shortlist(state, emitter, ids, valid, origin, dirs_cols, px0, py0, t
 
     acc = torch.zeros((n_tiles, rt, 3), dtype=torch.float32, device=dev)
     for i in range(spp):
-        off = _tile_offsets(seed, i, tile_ids, n_tiles, rt, jitter, dev)
+        off = _tile_offsets(seed, i, tile_ids, film_tiles, rt, jitter, dev)
         d = torch.stack(dirs_cols(px0 + off[..., 0], py0 + off[..., 1]), dim=-1)  # [T, RT, 3]
         if cfg.backend == "pallas":
             d_flat = d.reshape(-1, 3)
@@ -867,15 +882,16 @@ def _class_counts(n_tiles: int, budget_classes) -> list:
     return counts
 
 
-def _tile_offsets(seed, i, tile_ids, n_tiles, rt, jitter, device):
+def _tile_offsets(seed, i, tile_ids, film_tiles, rt, jitter, device):
     """In-pixel offsets [T, RT, 2] of sample ``i`` for the tiles ``tile_ids``:
-    drawn for the whole film from a Philox generator keyed by (seed, i) and
-    indexed by global tile id; 0.5 (pixel centers) without jitter."""
+    drawn for the whole film of ``film_tiles`` tiles from a Philox generator
+    keyed by (seed, i) and indexed by global tile id; 0.5 (pixel centers)
+    without jitter."""
     if not jitter:
         return torch.full((tile_ids.shape[0], rt, 2), 0.5, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed((seed * 1_000_003 + i) % (2**63))
-    off = torch.rand((n_tiles, rt, 2), generator=gen, device=device)
+    off = torch.rand((film_tiles, rt, 2), generator=gen, device=device)
     return off[tile_ids]
 
 

@@ -24,6 +24,7 @@ import torch
 
 from .models import rf_tiled
 from .optim import BoundedAdam, l1, psnr
+from .parallel.mesh import Mesh, sum_grads
 from .scene.cameras import CameraSpecs
 from .scene.ellipsoids import EllipsoidScene
 
@@ -75,14 +76,16 @@ def to_scene(params: Dict[str, torch.Tensor], base: Optional[EllipsoidScene]) ->
 
 def render_cameras(scene: EllipsoidScene, cameras: Sequence[CameraSpecs],
                    cfg: rf_tiled.RFTiledConfig, spp: int = 1, seed: int = 0,
-                   jitter: bool = True) -> torch.Tensor:
+                   jitter: bool = True, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Every camera's frame side by side, [H, N*W, 3]; camera i renders
-    with seed ``seed * 131 + i``."""
+    with seed ``seed * 131 + i``. ``mesh`` shards each frame's tiles over
+    its ranks (``rf_tiled.render_state``)."""
     state = rf_tiled.build_state(scene, cfg)
     return torch.cat(
         [
             rf_tiled.render_state(
-                state, cam, cfg, None, spp=spp, seed=seed * 131 + i, jitter=jitter
+                state, cam, cfg, None, spp=spp, seed=seed * 131 + i, jitter=jitter,
+                mesh=mesh,
             )
             for i, cam in enumerate(cameras)
         ],
@@ -100,15 +103,24 @@ def train_step(
     seed: int = 0,
     base: Optional[EllipsoidScene] = None,
     jitter: bool = True,
+    mesh: Optional[Mesh] = None,
 ):
     """One optimizer step on ``params`` (leaf tensors that require grad),
     in place. Returns (L1 loss, PSNR, image), detached, from the render
-    before the step."""
+    before the step. With ``mesh`` every rank renders its block of each
+    frame's tiles and the gradients are summed over the ranks before the
+    step (``parallel.sum_grads``, as ``parallel.sharded_grad_step`` sums
+    them), so replicas that start equal stay equal."""
     for p in params.values():
         p.grad = None
-    img = render_cameras(to_scene(params, base), cameras, cfg, spp, seed, jitter)
+    img = render_cameras(to_scene(params, base), cameras, cfg, spp, seed, jitter, mesh)
     loss = l1(ref_image, img)
     loss.backward()
+    if mesh is not None:
+        for p in params.values():
+            if p.grad is None:  # every rank sums the same tensors
+                p.grad = torch.zeros_like(p)
+        sum_grads(mesh, [p.grad for p in params.values()])
     img = img.detach()
     opt.step(params)
     return loss.detach(), psnr(ref_image, img), img
