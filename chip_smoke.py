@@ -162,10 +162,12 @@ example CLIs), on the headline scene at full width:
     f32) by their projection on the f64 gradient (within 0.3 of 1) and
     an RMS deviation within 20x the v1 kernel's; then the Epanechnikov
     step;
-24. emitter: the headline fused frame and the xla frame (srgb_primitives
-    off, 1 spp, pixel centers) with and without ConstantEmitter(ones):
-    their difference equals, pixel by pixel, the beta the compositor
-    returned for that pixel's ray (placed by its direction) within 1e-6;
+24. emitter: the headline fused frame, the xla frame and the headline
+    fused frame with early_exit and compaction off (the early-exit walk;
+    srgb_primitives off, 1 spp, pixel centers) with and without
+    ConstantEmitter(ones): their difference equals, pixel by pixel, the
+    beta the compositor returned for that pixel's ray (placed by its
+    direction) within 1e-6;
 25. cli: render_3dg_asset and refine_3dg_dataset in subprocesses on phase
     21's files: the tiled Gaussian render (fused kernel; its EXR equal to
     an in-process render of the same configuration, whose forward launches
@@ -289,10 +291,33 @@ phases 4 and 7 run on the blocks):
     steps' sizes, the launches and peak memory. A rank that fails or
     outlasts DP_TIMEOUT fails the run.
 
+Then the last two pieces of the JAX package: the fused forward's early-exit
+walk and the path tracer's stage profilers:
+
+38. early_exit (and one early_exit_launch line a launch): the refine CLI's
+    tiled configuration (fused, early_exit, no compaction) on phase 25's 8
+    cameras at 64^2 and the profiler frame's (tools/profile_rf at its
+    defaults: 512^2, 2 spp, refine 0.125) on the headline scene, each
+    driven once with the counts set to 0 just before and read just after;
+    every launch replayed with early_exit on and off against the plain
+    versions (L within ATOL / RTOL and KILL_FLIP, walked and live equal per
+    tile, beta under early exit as EE_BETA_RTOL says), the kernel's
+    ms with the flag on and off, the plain version's, the bound on the
+    segments the early-exit walk reads, and the segments walked against
+    live. Some launch must hold tiles that stop early and tiles that walk
+    every live segment, or phase 3's synthetic tiles with every live
+    opacity at 0.99 are added (EE_SYNTH);
+39. prb_profiler: tools/profile_prb (--quick plus its walk=pallas rows) and
+    tools/ff_attrib in-process at PRB_PROFILE_RES^2 with PRB_PROFILE_REPS
+    reps, their rows and summaries printed: the walk=pallas rows must have
+    launched csrc/ffwalk.cu, and each _FF_STOP stage must take no longer
+    than the full free_flight by more than the two rows' spread of reps.
+
 Then the total seconds, a JSON line with each kernel's numbers (the walk's
 with its launches, kernel ms and bound on the sequential, cluster,
-coeff_gemm, surface-capped and radiance-cache paths; the compositors' with
-the launches of phase 37's ranks, by backend and rank), the card's
+coeff_gemm, surface-capped and radiance-cache paths and its launches in
+phase 39; the compositors' with the launches of phase 37's ranks, by
+backend and rank; the forward's with phase 38's early-exit walk), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero. There is no CPU mode: without a CUDA card it exits with an
 error. ``--out DIR`` also writes the details and torch.profiler tables of
@@ -609,20 +634,25 @@ def device_profile(fn, out_dir: str, name: str, n: int = 2, stages: dict = None)
 
 @torch.no_grad()
 def work(composite3, d8, pf, sh3, n_seg_t, seg, extent2, max_depth, sh_k, compact,
-         order_band=0):
+         order_band=0, walked=None):
     """What one compositor call on these inputs must do: live columns,
     (ray, stream column) pairs, hits under the cap, hit pairs within the
     order band, and the least time of the forward and the backward on this
     card (ms, and what bounds it). Input bytes count the live segments'
-    columns once; outputs are written whole."""
+    columns once; outputs are written whole. ``walked`` [T] (the forward
+    under early exit, without compaction): each tile's segments past it
+    are not read and count for nothing."""
     t, _, r = d8.shape
     s = pf.shape[2]
     lane = torch.arange(s, device=d8.device)
-    live = lane[None, :] // seg < torch.clamp(n_seg_t.long(), 0, s // seg)[:, None]
+    n_live = torch.clamp(n_seg_t.long(), 0, s // seg)
+    if walked is not None:
+        n_live = torch.minimum(n_live, walked.long().to(d8.device))
+    live = lane[None, :] // seg < n_live[:, None]
     hits = band_pairs = stream_cols = 0
     for t0 in range(0, t, TILE_CHUNK):  # memory: [tiles, R, seg] temporaries
         c = slice(t0, t0 + TILE_CHUNK)
-        pf_s, _, nseg, _, inside = composite3._stream(d8[c], pf[c], sh3[c], n_seg_t[c], seg,
+        pf_s, _, nseg, _, inside = composite3._stream(d8[c], pf[c], sh3[c], n_live[c], seg,
                                                       compact)
         stream_cols += int(inside.sum()) if compact else int(live[c].sum())
         d3, f6, _, _ = composite3._ray_terms(d8[c], sh_k, sh3.dtype)
@@ -655,6 +685,19 @@ def work(composite3, d8, pf, sh3, n_seg_t, seg, extent2, max_depth, sh_k, compac
         out[f"{name}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         out[f"{name}_bytes"], out[f"{name}_ops"] = nbytes, ops
     return out
+
+
+def fwd_work(composite3, a) -> dict:
+    """:func:`work` of one recorded ``composite3._launch`` argument tuple
+    ``a``; under early exit without compaction on the segments its plain
+    version walks (the TPU kernel's semantics)."""
+    walked = None
+    if a[11] and not a[9]:
+        walked = torch.cat([
+            composite3._forward3_reference(a[0][c], a[1][c], a[2][c], a[3][c], *a[4:])[2]
+            for c in (slice(t0, t0 + TILE_CHUNK) for t0 in range(0, a[0].shape[0], TILE_CHUNK))
+        ])
+    return work(composite3, *a[:4], a[4], a[5], a[6], a[8], a[9], a[10], walked=walked)
 
 
 def bf16_ulp(x):
@@ -1543,7 +1586,7 @@ def check_fwd3(composite3, a, reps=10) -> dict:
     live counts equal."""
     d8, pf, sh3, n_seg_t = a[:4]
     kw = dict(zip(("seg", "extent2", "max_depth", "beta_kill", "sh_k", "compact",
-                   "order_band"), a[4:]))
+                   "order_band", "early_exit"), a[4:]))
     got = composite3.forward3(d8, pf, sh3, n_seg_t, **kw)
     want = [torch.cat(x) for x in zip(*(
         composite3._forward3_reference(d8[c], pf[c], sh3[c], n_seg_t[c], *a[4:])
@@ -1552,11 +1595,14 @@ def check_fwd3(composite3, a, reps=10) -> dict:
     torch.cuda.synchronize()
     n_rays = d8.shape[0] * d8.shape[2]
     row = dict(tiles=int(d8.shape[0]), rays=int(d8.shape[2]), S=int(pf.shape[2]),
-               compact=kw["compact"], order_band=kw["order_band"],
+               compact=kw["compact"], order_band=kw["order_band"], early_exit=kw["early_exit"],
                L=compare(got[0], want[0], n_rays), beta=compare(got[1], want[1], n_rays),
                walked_equal=bool(torch.equal(got[2], want[2].to(got[2].dtype))),
                live_equal=bool(torch.equal(got[3], want[3].to(got[3].dtype))),
-               walked_mean=float(got[2].float().mean()), live_mean=float(got[3].float().mean()))
+               walked_mean=float(got[2].float().mean()), live_mean=float(got[3].float().mean()),
+               walked=int(got[2].sum()), live=int(got[3].sum()),
+               tiles_stopped_early=int((got[2] < got[3]).sum()),
+               tiles_walked_whole=int((got[2] == got[3]).sum()))
     row["ok"] = row["L"]["ok"] and row["beta"]["ok"] and row["walked_equal"] and row["live_equal"]
     del got, want
     row["ms"] = cuda_ms(lambda: composite3.forward3(d8, pf, sh3, n_seg_t, **kw), reps)
@@ -1695,7 +1741,7 @@ def band_frames(composite3, rf_tiled, scene, camera, exact, sel, details) -> lis
         rows = []
         for a in recorded:
             row = check_fwd3(composite3, a)
-            row.update(work(composite3, *a[:4], a[4], a[5], a[6], a[8], a[9], a[10]))
+            row.update(fwd_work(composite3, a))
             rows.append(row)
             phase("kernel_on_band_frame_inputs", max_candidates=mc, **row)
         res = dict(
@@ -2241,36 +2287,41 @@ def emitter_check(composite3, rf_tiled, scene, camera, details) -> dict:
     difference, pixel by pixel, is the beta the compositor returned for
     that pixel's ray, within 1e-6 (each launch's rays placed on the film
     by their directions, :func:`beta_image`; every pixel takes one ray);
-    the same on the xla route."""
+    the same on the xla route, and on the fused route with early_exit and
+    compaction off (the early-exit walk, whose beta is where each tile
+    stopped)."""
     from volprim_tpu_torch.ops.envmap import ConstantEmitter
 
     emitter = ConstantEmitter(radiance=torch.ones(3, device=scene.device))
     res = {}
-    for route, cfg in (("fused", rf_tiled.RFTiledConfig(**dict(HEADLINE, srgb_primitives=False))),
-                       ("xla", rf_tiled.RFTiledConfig(backend="xla",
-                                                      **dict(V12, srgb_primitives=False)))):
+    for name, route, cfg in (
+        ("fused", "fused", rf_tiled.RFTiledConfig(**dict(HEADLINE, srgb_primitives=False))),
+        ("xla", "xla", rf_tiled.RFTiledConfig(backend="xla", **dict(V12, srgb_primitives=False))),
+        ("fused_early_exit", "fused", rf_tiled.RFTiledConfig(**dict(
+            HEADLINE, srgb_primitives=False, early_exit=True, kernel_compact=False))),
+    ):
         state = rf_tiled.build_state(scene, cfg)
-        module, name = ((composite3, "_launch") if route == "fused"
+        module, attr = ((composite3, "_launch") if route == "fused"
                         else (rf_tiled, "_composite_tiles_xla"))
-        orig, rays = getattr(module, name), []
+        orig, rays = getattr(module, attr), []
 
         def recording(*a, **kw):
             out = orig(*a, **kw)
             rays.append(launch_rays(route, a, out))
             return out
 
-        setattr(module, name, recording)
+        setattr(module, attr, recording)
         try:
             with_em = rf_tiled.render_state(state, camera, cfg, emitter, spp=1, jitter=False)
         finally:
-            setattr(module, name, orig)
+            setattr(module, attr, orig)
         without = rf_tiled.render_state(state, camera, cfg, None, spp=1, jitter=False)
         beta, count = beta_image(camera, rays)
         diff = (with_em - without).double()
         err = float((diff - beta[..., None]).abs().max())
-        res[route] = dict(launches=len(rays), max_abs_err=err,
-                          pixels_not_one_ray=int((count != 1).sum()),
-                          mean_beta=float(beta.mean()))
+        res[name] = dict(launches=len(rays), max_abs_err=err,
+                         pixels_not_one_ray=int((count != 1).sum()),
+                         mean_beta=float(beta.mean()))
         del state
     phase("emitter", **res)
     details["emitter"] = res
@@ -2319,8 +2370,7 @@ def cli_phase(composite3, rf_tiled, paths, scene, dev, details) -> dict:
             composite3, "_launch", composite3.composite_tiles3,
             lambda: rf_tiled.render_state(state, camera, tcfg, None, spp=2, seed=0))
     rows = [check_fwd3(composite3, a) for a in recorded]
-    bound = sum(work(composite3, *a[:4], a[4], a[5], a[6], a[8], a[9], a[10])["fwd_bound_ms"]
-                for a in recorded)
+    bound = sum(fwd_work(composite3, a)["fwd_bound_ms"] for a in recorded)
     del state, recorded
     out_dir = os.path.join(ASSET_DIR, "render_tiled")
     wall, _ = _run_cli("render_3dg_asset", ["--ply", ply, "--cameras", cams, "--output",
@@ -2385,6 +2435,9 @@ def cli_phase(composite3, rf_tiled, paths, scene, dev, details) -> dict:
                 lambda: record_launches(composite3, "_launch_bwd",
                                         composite3.composite_tiles3_bwd, step))
             f_rows = [check_fwd3(composite3, a) for a in rec_f]
+            # the forward takes the early-exit walk: its bound is on the
+            # segments that walk reads
+            f_bound = sum(fwd_work(composite3, a)["fwd_bound_ms"] for a in rec_f)
             b_rows = []
             for a in rec_b:
                 d8, pf, sh3, n_seg_t, g_l, g_beta, seg, e2, md, bk, shk, compact, band = a
@@ -2395,7 +2448,6 @@ def cli_phase(composite3, rf_tiled, paths, scene, dev, details) -> dict:
                                                compact)
                 b_rows.append(dict(ok=cmp_["ok"], ms=ms, plain_ms=plain_ms,
                                    max_abs=max(cmp_[x]["max_abs"] for x in ("gpf", "gsh")),
-                                   fwd_bound_ms=w["fwd_bound_ms"],
                                    bwd_bound_ms=w["bwd_bound_ms"]))
             del rec_f, rec_b, params
             row.update(launches_fwd=n_fwd, launches_bwd=n_bwd,
@@ -2403,7 +2455,7 @@ def cli_phase(composite3, rf_tiled, paths, scene, dev, details) -> dict:
                        fwd_plain_ms=sum(r_["plain_ms"] for r_ in f_rows),
                        fwd_max_abs_err=max(r_[x]["max_abs"] for r_ in f_rows
                                            for x in ("L", "beta")),
-                       fwd_bound_ms=sum(r_["fwd_bound_ms"] for r_ in b_rows),
+                       fwd_bound_ms=f_bound,
                        bwd_ms=sum(r_["ms"] for r_ in b_rows),
                        bwd_plain_ms=sum(r_["plain_ms"] for r_ in b_rows),
                        bwd_bound_ms=sum(r_["bwd_bound_ms"] for r_ in b_rows),
@@ -3363,6 +3415,171 @@ def generate_dataset_cli(ply, exact_s, dev, details) -> dict:
 # gloo moves CUDA tensors through the host); then one NCCL rank runs the
 # same code, the path a multi-card host takes
 DP_WORLD, DP_TIMEOUT, DP_SEED = 2, 600, 5
+# ---- 38. the early-exit walk of the fused forward ---------------------------
+
+# Phase 38's synthetic set (phase 3's shapes, every live opacity 0.99), used
+# only when neither the refine CLI's nor the profiler's frame gives a launch
+# with tiles that stop early and tiles that walk every live segment
+EE_SYNTH = dict(t=64, r=512, s=2048, seg=256, sh_k=4, seed=38)
+# beta under early exit against the plain version's (compare's max_rel,
+# |diff| / max(|beta|, 1e-6)): within EE_BETA_RTOL, or within twice the same
+# launch's deviation with the flag off, whichever is larger. The kernel sums
+# log1p(-alpha) in stream order and the plain version per segment with
+# torch.cumsum, so the two betas differ by a few 1e-6 relative wherever a
+# ray has many hits, with the flag on and off alike; a tile that stops at
+# another segment fails walked_equal.
+EE_BETA_RTOL = 1e-6
+
+
+@torch.no_grad()
+def early_exit_check(composite3, a, reps=10) -> dict:
+    """One recorded ``composite3._launch`` tuple ``a`` (early exit on,
+    compaction off) replayed with the flag on and off, each against its
+    plain version (check_fwd3: L within ATOL / RTOL and KILL_FLIP, walked
+    and live equal per tile), beta under early exit as EE_BETA_RTOL says,
+    and the forward's bound on the segments each walk reads (fwd_work)."""
+    on, off = a[:11] + (True,), a[:11] + (False,)
+    r_on, r_off = check_fwd3(composite3, on, reps), check_fwd3(composite3, off, reps)
+    w_on, w_off = fwd_work(composite3, on), fwd_work(composite3, off)
+    row = dict(tiles=r_on["tiles"], rays=r_on["rays"], S=r_on["S"], order_band=a[10],
+               on={k: r_on[k] for k in ("L", "beta", "walked_equal", "ms", "plain_ms", "walked",
+                                        "live", "tiles_stopped_early", "tiles_walked_whole")},
+               off={k: r_off[k] for k in ("L", "beta", "walked_equal", "ms", "plain_ms",
+                                          "walked", "live")},
+               bound_ms=w_on["fwd_bound_ms"], bound_by=w_on["fwd_bound_by"],
+               bound_ms_off=w_off["fwd_bound_ms"], pairs=w_on["pairs"], pairs_off=w_off["pairs"])
+    row["beta_limit"] = max(EE_BETA_RTOL, 2.0 * r_off["beta"]["max_rel"])
+    row["ok"] = r_on["ok"] and r_off["ok"] and r_on["beta"]["max_rel"] <= row["beta_limit"]
+    return row
+
+
+def early_exit_phase(composite3, rf_tiled, scene, cameras_json, dev, details) -> dict:
+    """Phase 38: the fused forward's early-exit walk (early_exit on,
+    compaction off: the TPU kernel's while loop, which stops a tile before
+    the first segment at which every ray is capped or at or below
+    log(beta_kill)) on the refine CLI's configuration (its 8 cameras at
+    64^2, as phase 25) and the profiler frame's (512^2, spp 2, refine
+    0.125) on the headline scene: each driven once with the counts set to
+    0 just before and read just after, then every launch replayed with the
+    flag on and off against the plain versions (:func:`early_exit_check`).
+    Some launch must hold tiles that stop early and tiles that walk every
+    live segment; if none does, phase 3's synthetic tiles with every live
+    opacity at 0.99 are added (EE_SYNTH)."""
+    from volprim_tpu_torch import train
+    from volprim_tpu_torch.examples import refine_3dg_dataset as refine
+    from volprim_tpu_torch.scene import JSONCameraSpecsIO
+    from volprim_tpu_torch.tools import profile_rf
+
+    t_phase = time.perf_counter()
+    cameras = refine.select_cameras(JSONCameraSpecsIO.load(cameras_json), 8, 0.125)
+    rcfg = refine.tiled_config(cameras[0], 128, "gaussian")
+    pargs = profile_rf._parser().parse_args([])
+    pcfg, pcam = profile_rf.config(pargs), profile_rf.camera()
+    pstate = rf_tiled.build_state(scene, pcfg)
+    sets, launches = {}, 0
+    for name, fn in (
+        ("refine_cli", lambda: train.render_cameras(scene, cameras, rcfg, spp=1, seed=0)),
+        ("profiler_frame", lambda: rf_tiled.render_state(pstate, pcam, pcfg, None,
+                                                         spp=pargs.spp, seed=0)),
+    ):
+        with torch.no_grad():
+            _, n, rec = record_launches(composite3, "_launch", composite3.composite_tiles3, fn)
+        if not n or n != len(rec) or not all(a[11] and not a[9] for a in rec):
+            fail(f"early_exit ({name}): {n} launches, or one without early exit or with "
+                 "compaction")
+        launches += n
+        sets[name] = rec
+    del pstate
+    rows = {name: [early_exit_check(composite3, a) for a in rec] for name, rec in sets.items()}
+    mixed = [name for name, rs in rows.items()
+             if any(r_["on"]["tiles_stopped_early"] and r_["on"]["tiles_walked_whole"]
+                    for r_ in rs)]
+    if not mixed:
+        c = EE_SYNTH
+        d8, pf, sh3, n_seg_t = composite3.synthetic_tiles(c["t"], c["r"], c["s"], c["seg"],
+                                                          c["sh_k"], seed=c["seed"], device=dev)
+        pf[:, 12] = torch.where(pf[:, 12] > 0.0, 0.99, 0.0)
+        a = (d8, pf, sh3, n_seg_t, c["seg"], 9.0, 128, 0.01, c["sh_k"], False, 0, True)
+        rows["synthetic"] = [early_exit_check(composite3, a)]
+        if rows["synthetic"][0]["on"]["tiles_stopped_early"]:
+            mixed.append("synthetic")
+    for name, rs in rows.items():
+        for r_ in rs:
+            phase("early_exit_launch", set=name, **r_)
+    path = [r_ for name in sets for r_ in rows[name]]
+    res = dict(
+        launches=launches, sets_with_early_stops=mixed,
+        ms=sum(r_["on"]["ms"] for r_ in path), ms_off=sum(r_["off"]["ms"] for r_ in path),
+        plain_ms=sum(r_["on"]["plain_ms"] for r_ in path),
+        bound_ms=sum(r_["bound_ms"] for r_ in path),
+        bound_by=max(path, key=lambda r_: r_["bound_ms"])["bound_by"],
+        bound_ms_off=sum(r_["bound_ms_off"] for r_ in path),
+        segments_walked=sum(r_["on"]["walked"] for r_ in path),
+        segments_walked_off=sum(r_["off"]["walked"] for r_ in path),
+        segments_live=sum(r_["on"]["live"] for r_ in path),
+        tiles_stopped_early={name: sum(r_["on"]["tiles_stopped_early"] for r_ in rs)
+                             for name, rs in rows.items()},
+        max_abs_err=max(r_[v][x]["max_abs"] for rs in rows.values() for r_ in rs
+                        for v in ("on", "off") for x in ("L", "beta")),
+        beta_max_rel=max(r_["on"]["beta"]["max_rel"] for rs in rows.values() for r_ in rs),
+        beta_max_rel_flag_off=max(r_["off"]["beta"]["max_rel"] for rs in rows.values()
+                                  for r_ in rs),
+        seconds=round(time.perf_counter() - t_phase, 2),
+    )
+    phase("early_exit", **res)
+    details["early_exit"] = dict(res, rows=rows)
+    if not mixed:
+        fail("early_exit: no input set holds tiles that stop early and tiles that do not")
+    bad = [(name, i) for name, rs in rows.items() for i, r_ in enumerate(rs) if not r_["ok"]]
+    if bad:
+        fail(f"early_exit: launches disagree with their plain versions: {bad}")
+    return res
+
+
+# ---- 39. the path tracer's stage profilers ----------------------------------
+
+# the profilers' film side and repetitions in phase 39 (their defaults: 256, 3)
+PRB_PROFILE_RES, PRB_PROFILE_REPS = 256, 2
+
+
+def prb_profiler_phase(details) -> dict:
+    """Phase 39: tools/profile_prb (--quick plus its two walk=pallas rows)
+    and tools/ff_attrib in-process at PRB_PROFILE_RES^2, PRB_PROFILE_REPS
+    reps: their rows and summaries are printed; the walk=pallas rows must
+    have launched csrc/ffwalk.cu, and every _FF_STOP stage must take no
+    longer than the full free_flight (random xi) by more than the spread of
+    the two rows' reps (a check of the stops, not a claim of speed)."""
+    from volprim_tpu_torch.tools import ff_attrib, profile_prb
+
+    t_phase = time.perf_counter()
+    common = ["--res", str(PRB_PROFILE_RES), "--reps", str(PRB_PROFILE_REPS)]
+    prof = profile_prb.main(["--quick", "--rows", "walk=pallas,walk=pallas exact", *common])
+    attrib = ff_attrib.main(common)
+    full = attrib["reps"]["full_xi_rand"]
+    stops = {}
+    for stop in ("collect", "escape", "sort"):
+        ts = attrib["reps"][stop]
+        spread = (max(ts) - min(ts)) + (max(full) - min(full))
+        stops[stop] = dict(ms=attrib[stop], full_ms=attrib["full_xi_rand"], spread_ms=spread,
+                           ok=attrib[stop] <= attrib["full_xi_rand"] + spread)
+    res = dict(
+        rows={k: v for k, v in prof.items() if isinstance(v, float)},
+        window_stats=prof["window_stats"], walk_launches=prof["walk_launches"],
+        ff_attrib={k: v for k, v in attrib.items() if k != "reps"}, stops=stops,
+        seconds=round(time.perf_counter() - t_phase, 2),
+    )
+    phase("prb_profiler", **res)
+    details["prb_profiler"] = dict(res, ff_attrib_reps=attrib["reps"])
+    if sorted(prof["walk_launches"]) != ["walk=pallas", "walk=pallas exact"] or not all(
+            prof["walk_launches"].values()):
+        fail(f"prb_profiler: the walk=pallas rows did not launch the walk kernel: "
+             f"{prof['walk_launches']}")
+    slow = [k for k, v in stops.items() if not v["ok"]]
+    if slow:
+        fail(f"prb_profiler: stage stops slower than the full free_flight: {slow} {stops}")
+    return res
+
+
 DP_DIR = os.path.join("build", "chip_smoke_dp")
 # the dryrun's batch-sensor step (__graft_entry__.dryrun_multichip: rf at
 # max_depth 8, L1 against a zero image, BoundedAdam at lr 1e-2 with bounded
@@ -3836,7 +4053,7 @@ def main() -> None:
 
     # the kernel against its plain version on the frame's own inputs
     path_checks, path_ms, path_plain_ms = [], 0.0, 0.0
-    for d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k, compact, _ in recorded:
+    for d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k, compact, *_ in recorded:
         inputs = (d8, pf, sh3, n_seg_t)
         kw = dict(seg=seg, extent2=extent2, max_depth=max_depth,
                   beta_kill=beta_kill, sh_k=sh_k)
@@ -3886,9 +4103,9 @@ def main() -> None:
     phase("quality", **details["quality"])
     if not psnr > 20.0:
         fail(f"PSNR vs the exact-order integrator is {psnr:.2f} dB")
-    fwd_work = [work(composite3, *a[:4], a[4], a[5], a[6], a[8], a[9], a[10]) for a in recorded]
-    phase("frame_kernel_work", classes=fwd_work)
-    details["frame_kernel_work"] = fwd_work
+    frame_work = [fwd_work(composite3, a) for a in recorded]
+    phase("frame_kernel_work", classes=frame_work)
+    details["frame_kernel_work"] = frame_work
 
     # ---- 6. backward kernel vs plain version, synthetic inputs ------------
     bwd_checks, band_checks = [], []
@@ -3901,7 +4118,8 @@ def main() -> None:
         for compact, band in ((False, 0), (True, 0), (False, BAND_SYNTH), (True, BAND_SYNTH)):
             if band:  # the forward, banded: its only check off band 16
                 f_row = check_fwd3(composite3, (*inputs, kw["seg"], kw["extent2"], kw["max_depth"],
-                                                 kw["beta_kill"], kw["sh_k"], compact, band))
+                                                 kw["beta_kill"], kw["sh_k"], compact, band,
+                                                 False))
                 phase("fwd_kernel_banded", R=r, **f_row)
                 band_checks.append(f_row)
                 if not f_row["ok"]:
@@ -4254,7 +4472,7 @@ def main() -> None:
     # ---- 21-25. the 3DGS-asset path: PLY and cameras, the xla route, ----
     # emitters and the two CLIs
     paths = asset_io(scene, details)
-    asset_ply = paths["ply"]
+    asset_ply, asset_cams = paths["ply"], paths["cameras"]
     xla_frame(rf_tiled, rf, scene, camera, exact, sel, o_sel, d_sel, details, args.out)
     xla_train_step(rf_tiled, camera, dev, details)
     emitter_check(composite3, rf_tiled, scene, camera, details)
@@ -4281,6 +4499,10 @@ def main() -> None:
     generate_dataset_cli(asset_ply, exact_s, dev, details)
     # ---- 37. data parallelism: gloo ranks on the card, one NCCL rank -----
     dp = data_parallel(scene, details)
+    # ---- 38. the fused forward's early-exit walk ---------------------------
+    ee = early_exit_phase(composite3, rf_tiled, scene, asset_cams, dev, details)
+    # ---- 39. the path tracer's stage profilers -----------------------------
+    prb_prof = prb_profiler_phase(details)
     new_walks = {"sequential": paths["sequential_pallas"]["walk"],
                  "clusters": paths["clusters_pallas"]["walk"],
                  "coeff_gemm": paths["coeff_gemm_pallas"]["walk"], "surfaces": surf["walk"],
@@ -4313,7 +4535,8 @@ def main() -> None:
         [c[x]["max_abs"] for c in checks + path_checks + [fwd_step_row]
          for x in ("L", "beta")]
         + [b["max_abs_err"] for b in band]
-        + [cli["render_tiled"]["fwd_max_abs_err"], cli["refine_gaussian"]["fwd_max_abs_err"]]
+        + [cli["render_tiled"]["fwd_max_abs_err"], cli["refine_gaussian"]["fwd_max_abs_err"],
+           ee["max_abs_err"]]
         + [r_[x]["max_abs"] for r_ in prof["rows"] + [band_step["fwd"], drift_step["fwd"]]
            + band_checks for x in ("L", "beta")]
     )
@@ -4323,7 +4546,7 @@ def main() -> None:
          for x in ("gpf", "gsh")]
         + [cli["refine_gaussian"]["bwd_max_abs_err"]]
     )
-    fwd_bound = sum(w["fwd_bound_ms"] for w in fwd_work)
+    fwd_bound = sum(w["fwd_bound_ms"] for w in frame_work)
     phase("total", seconds=round(time.perf_counter() - t_start, 2))
     print(json.dumps({"kernels": [{
         "name": "composite3_fwd",
@@ -4335,7 +4558,7 @@ def main() -> None:
         "ms": path_ms,
         "plain_ms": path_plain_ms,
         "bound_ms": fwd_bound,
-        "bound_by": max(fwd_work, key=lambda w: w["fwd_bound_ms"])["fwd_bound_by"],
+        "bound_by": max(frame_work, key=lambda w: w["fwd_bound_ms"])["fwd_bound_by"],
         "library_ms": None,
         "launches_train_step": step_launches[0],
         "ms_train_step": fwd_train_ms,
@@ -4356,6 +4579,14 @@ def main() -> None:
         "ms_cli_refine": cli["refine_gaussian"]["fwd_ms"],
         "plain_ms_cli_refine": cli["refine_gaussian"]["fwd_plain_ms"],
         "bound_ms_cli_refine": cli["refine_gaussian"]["fwd_bound_ms"],
+        "launches_early_exit": ee["launches"],
+        "ms_early_exit": ee["ms"],
+        "ms_early_exit_flag_off": ee["ms_off"],
+        "plain_ms_early_exit": ee["plain_ms"],
+        "bound_ms_early_exit": ee["bound_ms"],
+        "bound_by_early_exit": ee["bound_by"],
+        "segments_walked_early_exit": ee["segments_walked"],
+        "segments_live_early_exit": ee["segments_live"],
     }, {
         "name": "composite3_bwd",
         "route": "cuda",
@@ -4396,6 +4627,7 @@ def main() -> None:
                               ("bound_by", "bound_by"),
                               ("plain_ms_largest_launch", "largest_launch_plain_ms"),
                               ("ms_largest_launch", "largest_launch_ms"))},
+        "launches_prb_profiler": prb_prof["walk_launches"],
     }] + [{
         "name": name,
         "route": "cuda",

@@ -70,9 +70,9 @@ def test_plain_compositor_matches_jax_kernel(compact, sh_k):
     assert (n_seg_t < S // SEG).any() and (n_seg_t == S // SEG).any()
     kw = dict(seg=SEG, extent2=9.0, max_depth=24, beta_kill=0.01)
     l_t, b_t = tcomp.composite_tiles3_reference(d8, pf, sh3, n_seg_t, sh_k=sh_k, **kw)
-    # early_exit=False: the JAX while-loop walk stops once every ray of a
-    # tile is below beta_kill and then returns a partial beta; the port (and
-    # the JAX compacted walk) always returns the full capped product
+    # early_exit=False in both packages: each returns the full capped
+    # product; test_torch_early_exit.py holds the early-exit walk, which
+    # stops a tile once every ray is capped or below beta_kill
     l_j, b_j = jcomp.composite_tiles3(
         *_to_jax(d8, pf, sh3, n_seg_t), degree=int(sh_k**0.5) - 1, sh_k=sh_k,
         early_exit=False, interpret=True, compact=compact, **kw,

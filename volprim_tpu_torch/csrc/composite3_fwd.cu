@@ -16,14 +16,16 @@ cudaError_t launch(const float* d8, const float* pf, const __nv_bfloat16* sh3,
                    const int* n_seg_t, float* out_l, float* out_beta,
                    int* out_walked, int* out_live, int* idx_scr, int T, int R,
                    int S, int seg, float e2h, int max_depth, float log_kill,
-                   int compact, int band, cudaStream_t stream) {
+                   int compact, int band, int early_exit,
+                   cudaStream_t stream) {
   if (band == 0)
     return fwd_launch_nt<K, false, kAblNone>(
         d8, pf, sh3, n_seg_t, out_l, out_beta, out_walked, out_live, idx_scr,
-        T, R, S, seg, e2h, max_depth, log_kill, compact, band, stream);
+        T, R, S, seg, e2h, max_depth, log_kill, compact, band, early_exit,
+        stream);
   return fwd_launch_nt<K, true, kAblNone>(
       d8, pf, sh3, n_seg_t, out_l, out_beta, out_walked, out_live, idx_scr, T,
-      R, S, seg, e2h, max_depth, log_kill, compact, band, stream);
+      R, S, seg, e2h, max_depth, log_kill, compact, band, early_exit, stream);
 }
 
 }  // namespace
@@ -32,14 +34,15 @@ cudaError_t launch(const float* d8, const float* pf, const __nv_bfloat16* sh3,
 // f32, sh3 [T, 3k, S] bf16, n_seg_t [T] int32, out_l [T, R, 3] f32,
 // out_beta [T, R] f32, out_walked and out_live [T] int32, and with compact a
 // scratch idx_scr [T, S] int32, all contiguous on one device; 0 <= band <=
-// kMaxBand. Launches on `stream` and returns the launch's cudaError_t (0 on
-// success); it does not synchronise.
+// kMaxBand; early_exit nonzero stops a tile once every ray is capped or
+// saturated (without compaction only). Launches on `stream` and returns the
+// launch's cudaError_t (0 on success); it does not synchronise.
 extern "C" int composite3_fwd(const void* d8, const void* pf, const void* sh3,
                               const void* n_seg_t, void* out_l, void* out_beta,
                               void* out_walked, void* out_live, void* idx_scr,
                               int T, int R, int S, int seg, int k, float e2h,
                               int max_depth, float log_kill, int compact,
-                              int band, void* stream) {
+                              int band, int early_exit, void* stream) {
   if (!args_ok(T, R, S, seg, band))
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
@@ -57,19 +60,19 @@ extern "C" int composite3_fwd(const void* d8, const void* pf, const void* sh3,
     case 1:
       return static_cast<int>(launch<1>(d, p, s, n, l, b, wk, lv, ix, T, R, S,
                                         seg, e2h, max_depth, log_kill, compact,
-                                        band, st));
+                                        band, early_exit, st));
     case 4:
       return static_cast<int>(launch<4>(d, p, s, n, l, b, wk, lv, ix, T, R, S,
                                         seg, e2h, max_depth, log_kill, compact,
-                                        band, st));
+                                        band, early_exit, st));
     case 9:
       return static_cast<int>(launch<9>(d, p, s, n, l, b, wk, lv, ix, T, R, S,
                                         seg, e2h, max_depth, log_kill, compact,
-                                        band, st));
+                                        band, early_exit, st));
     case 16:
       return static_cast<int>(launch<16>(d, p, s, n, l, b, wk, lv, ix, T, R,
                                          S, seg, e2h, max_depth, log_kill,
-                                         compact, band, st));
+                                         compact, band, early_exit, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -59,6 +59,16 @@
 //     all its rays are capped. After the beta_kill cutoff a ray skips the
 //     emission work but keeps summing log1p(-alpha), so beta stays the full
 //     capped product;
+//   * with ``early_exit`` and no compaction (the TPU kernel's while-loop
+//     walk, composite3.py:728-747), also stops a block before the first
+//     segment at which every ray is capped or at or below log(beta_kill):
+//     beta is then exp(log beta) where the tile stopped, and the walked
+//     count is that segment's index. The vote is the same block-wide
+//     __syncthreads_or; a saturated ray that is under its cap goes on
+//     summing log1p(-alpha) while another ray keeps the block walking, as
+//     every ray of the TPU tile does. The segment the double buffer
+//     prefetched before the stopping vote is waited for after the loop, and
+//     no copy starts after that vote;
 //   * with the band, holds each ray's hits of the last 2B + 1 lanes in a
 //     window in local memory (a ring masked to the band at run time), and
 //     finishes a hit (its corrected weight and emission) B lanes after it,
@@ -93,8 +103,9 @@ enum Ablation {
   kAblNoop = 5,     // no compaction and no walk: set-up, ray terms, outputs
   kAblNoop2 = 6,    // not even the ray terms: outputs only (launch floor)
   kAblStatic = 7,   // every segment of S / seg walked (n_seg_t ignored), no
-                    // early exit of the block
-  kAblFori = 8,     // the live segments, no early exit of the block
+                    // early exit of the block (neither stop)
+  kAblFori = 8,     // the live segments, no early exit of the block (neither
+                    // stop)
 };
 
 // blocks per SM the register budget is sized for: 64 registers a thread
@@ -224,7 +235,8 @@ __global__ void __launch_bounds__(NT, fwd_min_blocks<NT>())
                 float* __restrict__ out_beta, int* __restrict__ out_walked,
                 int* __restrict__ out_live, int* __restrict__ idx_scr, int R,
                 int S, int seg, float e2h, int max_depth, float log_kill,
-                int compact, int band, int nbuf, int sh_async) {
+                int compact, int band, int early_exit, int nbuf,
+                int sh_async) {
   extern __shared__ __align__(16) unsigned char smem[];
   // nbuf staging buffers (stage_at), then the masks, the scan's counts and
   // the warps' cones (mask_bytes)
@@ -278,6 +290,9 @@ __global__ void __launch_bounds__(NT, fwd_min_blocks<NT>())
 
   float log_beta = 0.0f, l0 = 0.0f, l1 = 0.0f, l2 = 0.0f;
   int count = 0, walked = n_str;
+  // the saturation stop (early exit): the TPU kernel takes it only without
+  // compaction; the barrier-only ablations take no stop at all
+  const bool sat_stop = early_exit && !compact;
   [[maybe_unused]] BandWindow<false, BAND ? kBandCap : 1> win;
 
   if (nbuf == 2 && n_str > 0) {
@@ -286,7 +301,8 @@ __global__ void __launch_bounds__(NT, fwd_min_blocks<NT>())
     cp_async_commit();
   }
   for (int si = 0; si < n_str; ++si) {
-    const bool active = ray_ok && count <= max_depth;
+    const bool walks = ray_ok && count <= max_depth;
+    const bool active = walks && (!sat_stop || log_beta > log_kill);
     // also the barrier that retires the reads of the buffer restaged next
     if (ABL == kAblStatic || ABL == kAblFori) {
       __syncthreads();
@@ -312,7 +328,7 @@ __global__ void __launch_bounds__(NT, fwd_min_blocks<NT>())
     stage_radii(cur, n, e2h);
     __syncthreads();
     warp_survivors(s_cone, cur.pf, n, s_mask, lane);
-    if (!active) continue;
+    if (!walks) continue;
     if constexpr (BAND) {
       walk_segment_band<K>(cur, s_mask, n, ray, basis, e2h, max_depth,
                            log_kill, band, win, log_beta, count, l0, l1, l2);
@@ -321,7 +337,7 @@ __global__ void __launch_bounds__(NT, fwd_min_blocks<NT>())
                            log_kill, log_beta, count, l0, l1, l2);
     }
   }
-  cp_async_wait<0>();  // a prefetch still in flight after an early exit
+  cp_async_wait<0>();  // the prefetch still in flight after a stop
 
   if (ray_ok) {
     out_l[3 * o + 0] = l0;
@@ -341,7 +357,8 @@ cudaError_t fwd_launch_as(const float* d8, const float* pf,
                           float* out_l, float* out_beta, int* out_walked,
                           int* out_live, int* idx_scr, int T, int R, int S,
                           int seg, float e2h, int max_depth, float log_kill,
-                          int compact, int band, cudaStream_t stream) {
+                          int compact, int band, int early_exit,
+                          cudaStream_t stream) {
   // Double-buffered when two buffers fit, else one. The banded walk stages
   // through one buffer: it spends most of a segment in its window, and the
   // second buffer's shared memory would cost a block per SM (at 256
@@ -364,7 +381,8 @@ cudaError_t fwd_launch_as(const float* d8, const float* pf,
   }
   fwd3_kernel<K, BAND, NT, ABL><<<T, NT, smem, stream>>>(
       d8, pf, sh3, n_seg_t, out_l, out_beta, out_walked, out_live, idx_scr, R,
-      S, seg, e2h, max_depth, log_kill, compact, band, nbuf, sh_async);
+      S, seg, e2h, max_depth, log_kill, compact, band, early_exit, nbuf,
+      sh_async);
   return cudaGetLastError();
 }
 
@@ -375,20 +393,24 @@ cudaError_t fwd_launch_nt(const float* d8, const float* pf,
                           float* out_l, float* out_beta, int* out_walked,
                           int* out_live, int* idx_scr, int T, int R, int S,
                           int seg, float e2h, int max_depth, float log_kill,
-                          int compact, int band, cudaStream_t stream) {
+                          int compact, int band, int early_exit,
+                          cudaStream_t stream) {
   switch (block_threads(R)) {
     case 256:
       return fwd_launch_as<K, BAND, 256, ABL>(
           d8, pf, sh3, n_seg_t, out_l, out_beta, out_walked, out_live, idx_scr,
-          T, R, S, seg, e2h, max_depth, log_kill, compact, band, stream);
+          T, R, S, seg, e2h, max_depth, log_kill, compact, band, early_exit,
+          stream);
     case 512:
       return fwd_launch_as<K, BAND, 512, ABL>(
           d8, pf, sh3, n_seg_t, out_l, out_beta, out_walked, out_live, idx_scr,
-          T, R, S, seg, e2h, max_depth, log_kill, compact, band, stream);
+          T, R, S, seg, e2h, max_depth, log_kill, compact, band, early_exit,
+          stream);
     default:
       return fwd_launch_as<K, BAND, 1024, ABL>(
           d8, pf, sh3, n_seg_t, out_l, out_beta, out_walked, out_live, idx_scr,
-          T, R, S, seg, e2h, max_depth, log_kill, compact, band, stream);
+          T, R, S, seg, e2h, max_depth, log_kill, compact, band, early_exit,
+          stream);
   }
 }
 

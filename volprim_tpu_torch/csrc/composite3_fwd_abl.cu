@@ -16,24 +16,25 @@ cudaError_t launch(const float* d8, const float* pf, const __nv_bfloat16* sh3,
                    const int* n_seg_t, float* out_l, float* out_beta,
                    int* out_walked, int* out_live, int* idx_scr, int T, int R,
                    int S, int seg, float e2h, int max_depth, float log_kill,
-                   int compact, cudaStream_t stream) {
+                   int compact, int early_exit, cudaStream_t stream) {
   return fwd_launch_nt<4, false, ABL>(d8, pf, sh3, n_seg_t, out_l, out_beta,
-                                  out_walked, out_live, idx_scr, T, R, S, seg,
-                                  e2h, max_depth, log_kill, compact, 0, stream);
+                                      out_walked, out_live, idx_scr, T, R, S,
+                                      seg, e2h, max_depth, log_kill, compact, 0,
+                                      early_exit, stream);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes: composite3_fwd's tensors (k = 4, no
 // band) and scalars, with the ablation `abl` (1-8, enum Ablation) in place
-// of k and no band argument.
+// of k and no band argument (static and fori ignore early_exit).
 extern "C" int composite3_fwd_abl(const void* d8, const void* pf,
                                   const void* sh3, const void* n_seg_t,
                                   void* out_l, void* out_beta, void* out_walked,
                                   void* out_live, void* idx_scr, int T, int R,
                                   int S, int seg, int abl, float e2h,
                                   int max_depth, float log_kill, int compact,
-                                  void* stream) {
+                                  int early_exit, void* stream) {
   if (!args_ok(T, R, S, seg, 0)) return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
@@ -50,7 +51,7 @@ extern "C" int composite3_fwd_abl(const void* d8, const void* pf,
   case A:                                                                  \
     return static_cast<int>(launch<A>(d, p, s, n, l, b, wk, lv, ix, T, R, \
                                       S, seg, e2h, max_depth, log_kill,    \
-                                      compact, st));
+                                      compact, early_exit, st));
   switch (abl) {
     ABL_CASE(kAblNodepth)
     ABL_CASE(kAblNoemis)

@@ -20,7 +20,11 @@ the log-transmittance prefix with the ``beta_kill`` cutoff, and SH emission.
 - ``compact`` walks each tile's columns that meet its ray cone as one
   packed stream (:func:`_stream`), ``order_band`` corrects each pair's
   transmittance prefix for the entry order of the pairs within that many
-  lanes of it in its stream segment (:func:`_band_corr`).
+  lanes of it in its stream segment (:func:`_band_corr`), and
+  ``early_exit`` (without ``compact``) stops a tile before the first
+  segment at which none of its rays is both under its hit cap and above
+  ``beta_kill``, as the TPU kernel's while-loop walk does
+  (composite3.py:728-747): beta is then the product up to that segment.
 
 Packed column rows (the HALVED convention: rows 0-8 and 13 carry M/2, so
 the kernel compares against extent^2 / 2)::
@@ -275,9 +279,11 @@ def _stream(d8, pf, sh3, n_seg_t, seg, compact):
 
 
 def _forward3_reference(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill,
-                        sh_k, compact, order_band):
+                        sh_k, compact, order_band, early_exit=False):
     """(L, beta, walked, live) of the plain forward; see
-    :func:`composite_tiles3_reference` and :func:`forward3`."""
+    :func:`composite_tiles3_reference` and :func:`forward3`. Tiles stop
+    independently: a stopped tile's segments are masked out (its log beta
+    and L frozen), not broken off."""
     t, _, r = d8.shape
     s = pf.shape[2]
     if s % seg:
@@ -292,10 +298,16 @@ def _forward3_reference(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill
     count = torch.zeros_like(log_beta)
     l_acc = torch.zeros((t, r, 3), dtype=dtype, device=d8.device)
     walked = torch.zeros((t,), dtype=torch.int64, device=d8.device)
+    running = torch.ones((t,), dtype=torch.bool, device=d8.device)
     for si in range(int(nseg.max()) if t else 0):
-        live = (si < nseg)[:, None, None]  # [T, 1, 1]
-        # the kernels walk a segment while some ray of the tile is under its cap
-        walked += live[:, 0, 0] & (count[..., 0] <= max_depth).any(dim=1)
+        active = count[..., 0] <= max_depth  # [T, R]
+        if early_exit and not compact:  # JAX's while-loop cond: also above the kill
+            active = active & (log_beta[..., 0] > log_kill)
+        # a tile walks on while some ray of it is active (the kernels' block
+        # vote); past the cap alone that changes no output
+        running = running & (si < nseg) & active.any(dim=1)
+        live = running[:, None, None]  # [T, 1, 1]
+        walked += running
         cols = pf[:, :, si * seg:(si + 1) * seg]
         alpha0 = _segment_pairs(cols, d3, f6, e2h, live)[7]
         depth_ok, count = _capped(alpha0, count, max_depth)
@@ -340,6 +352,7 @@ def composite_tiles3_reference(
     sh_k: int = 16,
     compact: bool = False,
     order_band: int = 0,
+    early_exit: bool = False,
 ):
     """Plain PyTorch version of the forward compositor: segment by segment,
     with ``torch.cumsum`` for the hit count and the log-transmittance
@@ -348,11 +361,13 @@ def composite_tiles3_reference(
     changes L only through the segment boundaries of the order band and the
     rounding of the carries. ``order_band`` > 0 corrects each lane's
     transmittance prefix for the entry order of its neighbours within that
-    many lanes of the same segment (:func:`_band_corr`). Returns
-    (L [T, R, 3], beta [T, R]) in pf's dtype: f32 as the kernel computes;
-    the CPU tests pass f64 as a yardstick."""
+    many lanes of the same segment (:func:`_band_corr`). ``early_exit``
+    without ``compact`` stops each tile as the TPU kernel's while loop does
+    (see the module docstring); with ``compact`` it changes nothing, as in
+    JAX. Returns (L [T, R, 3], beta [T, R]) in pf's dtype: f32 as the
+    kernel computes; the CPU tests pass f64 as a yardstick."""
     return _forward3_reference(d8, pf, sh3, n_seg_t, seg, extent2, max_depth,
-                               beta_kill, sh_k, compact, order_band)[:2]
+                               beta_kill, sh_k, compact, order_band, early_exit)[:2]
 
 
 def composite_tiles3_bwd_reference(
@@ -499,13 +514,13 @@ def composite_tiles3_bwd_reference(
 
 
 # each C entry point's arguments after its tensor pointers: T, R, S, seg,
-# sh_k, e2h, max_depth, log_kill, compact, band, stream; the ablations'
-# (built for sh_k 4 and no band) T, R, S, seg, abl, e2h, max_depth,
-# log_kill, compact, stream
+# sh_k, e2h, max_depth, log_kill, compact, band, (the forward's) early_exit,
+# stream; the ablations' (built for sh_k 4 and no band) T, R, S, seg, abl,
+# e2h, max_depth, log_kill, compact, early_exit, stream
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "composite3_fwd": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _CF, _CI, _CI, _VP],
-    "composite3_fwd_abl": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _CF, _CI, _VP],
+    "composite3_fwd": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _CF, _CI, _CI, _CI, _VP],
+    "composite3_fwd_abl": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _CF, _CI, _CI, _VP],
     "composite3_bwd": [_VP] * 11 + [_CI] * 5 + [_CF, _CI, _CF, _CI, _CI, _VP],
 }
 # The forward's timing ablations (csrc/composite3_fwd.cuh, enum Ablation):
@@ -561,7 +576,7 @@ def _stream_scratch(t, s, compact, dev):
 
 
 def _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k,
-            compact, order_band=0, abl=0):
+            compact, order_band=0, early_exit=False, abl=0):
     """Launch csrc/composite3_fwd.cu, or with ``abl`` (an ABLATIONS value)
     csrc/composite3_fwd_abl.cu: (L [T, R, 3], beta [T, R], walked [T],
     live [T])."""
@@ -580,9 +595,10 @@ def _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k,
         scalars = (extent2 * 0.5, int(max_depth), _log_kill(beta_kill), int(compact))
         stream = torch.cuda.current_stream(dev).cuda_stream
         if abl:
-            err = lib.composite3_fwd_abl(*head, abl, *scalars, stream)
+            err = lib.composite3_fwd_abl(*head, abl, *scalars, int(early_exit), stream)
         else:
-            err = lib.composite3_fwd(*head, sh_k, *scalars, int(order_band), stream)
+            err = lib.composite3_fwd(*head, sh_k, *scalars, int(order_band), int(early_exit),
+                                     stream)
     _build.raise_on(lib, err, name)
     if abl:
         forward3_ablated.launches += 1
@@ -628,17 +644,19 @@ def _launch_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth,
 
 
 def forward3(d8, pf, sh3, n_seg_t, seg=256, extent2=9.0, max_depth=128,
-             beta_kill=0.01, sh_k=16, compact=False, order_band=0):
+             beta_kill=0.01, sh_k=16, compact=False, order_band=0, early_exit=False):
     """The forward compositor with its profiling counters, as JAX's
     ``_forward3`` (composite3.py:1202) returns them in columns 4-5:
     (L [T, R, 3], beta [T, R], walked [T], live [T]). ``live`` counts the
     segments of each tile's stream: ceil(survivors / seg) with ``compact``,
-    else its live segments. ``walked`` counts the segments the port walked:
-    a tile stops when every ray is past its hit cap (JAX stops under
-    ``early_exit`` when every ray is also spent, so the two differ).
+    else its live segments. ``walked`` counts the segments the port walked.
+    With ``early_exit`` and no compaction it is JAX's: the tile stops before
+    the first segment at which every ray is past its hit cap or at or below
+    log(beta_kill). Otherwise the port still stops a tile once every ray is
+    past its cap, which changes no output (JAX reports the live count there).
     CUDA tensors launch csrc/composite3_fwd.cu; CPU tensors take the plain
     version. Not differentiable: :func:`composite_tiles3` is."""
-    args = (seg, extent2, max_depth, beta_kill, sh_k, compact, order_band)
+    args = (seg, extent2, max_depth, beta_kill, sh_k, compact, order_band, early_exit)
     if d8.device.type == "cpu":
         return _forward3_reference(d8, pf, sh3, n_seg_t, *args)
     if d8.device.type != "cuda":
@@ -647,7 +665,7 @@ def forward3(d8, pf, sh3, n_seg_t, seg=256, extent2=9.0, max_depth=128,
 
 
 def forward3_ablated(abl, d8, pf, sh3, n_seg_t, seg=256, extent2=9.0, max_depth=128,
-                     beta_kill=0.01, sh_k=4, compact=False):
+                     beta_kill=0.01, sh_k=4, compact=False, early_exit=False):
     """The forward kernel with the timing ablation ``abl`` (a key of
     ABLATIONS) compiled in, for the profiler's abl_* stages: (L, beta,
     walked, live) as :func:`forward3` returns them, wrong by design. CUDA
@@ -660,7 +678,7 @@ def forward3_ablated(abl, d8, pf, sh3, n_seg_t, seg=256, extent2=9.0, max_depth=
     if sh_k != 4:
         raise ValueError(f"the ablated kernels are built for sh_k 4, got {sh_k}")
     return _launch(d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k, compact,
-                   0, ABLATIONS[abl])
+                   0, early_exit, ABLATIONS[abl])
 
 
 forward3_ablated.launches = 0
@@ -687,13 +705,16 @@ composite_tiles3_bwd.launches = 0
 class _Composite3(torch.autograd.Function):
     """The compositor with the backward of composite3._bwd3_rule: gradients
     reach pf and sh3; d8 and n_seg_t get none (JAX gives zeros and
-    float0). An unused beta output is a zero cotangent."""
+    float0). An unused beta output is a zero cotangent. The backward takes
+    no ``early_exit`` (the last argument): JAX's rule does not pass it to
+    its kernel, which walks the whole stream, so under early exit the beta
+    cotangent reaches segments the forward did not walk."""
 
     @staticmethod
     def forward(ctx, d8, pf, sh3, n_seg_t, *args):
         out = forward3(d8, pf, sh3, n_seg_t, *args)[:2]
         ctx.save_for_backward(d8, pf, sh3, n_seg_t)
-        ctx.args = args
+        ctx.args = args[:-1]
         ctx.set_materialize_grads(True)
         return out
 
@@ -702,7 +723,7 @@ class _Composite3(torch.autograd.Function):
         d8, pf, sh3, n_seg_t = ctx.saved_tensors
         gpf, gsh = composite_tiles3_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, *ctx.args)
         need = ctx.needs_input_grad
-        return (None, gpf if need[1] else None, gsh if need[2] else None) + (None,) * 8
+        return (None, gpf if need[1] else None, gsh if need[2] else None) + (None,) * 9
 
 
 def composite_tiles3(
@@ -717,6 +738,7 @@ def composite_tiles3(
     sh_k: int = 16,
     compact: bool = False,
     order_band: int = 0,
+    early_exit: bool = False,
 ):
     """Fused compositor: (L [T, R, 3], beta [T, R]), differentiable in
     ``pf`` and ``sh3``.
@@ -728,10 +750,17 @@ def composite_tiles3(
     each pair's transmittance prefix for the entry order of its stream
     neighbours, as the TPU kernel's order band) and raise if one does not
     launch. CPU tensors take :func:`composite_tiles3_reference` and
-    :func:`composite_tiles3_bwd_reference`."""
+    :func:`composite_tiles3_bwd_reference`.
+
+    ``early_exit`` (default off; JAX's default is on) stops a tile without
+    compaction before the first segment at which none of its rays is under
+    its hit cap and above ``beta_kill``; beta is then the product up to
+    there, which an emitter's light reads. L is the same either way (a ray
+    at or below beta_kill adds no more emission). The backward walks the whole stream
+    whatever the flag, as JAX's custom VJP does."""
     return _Composite3.apply(
         d8, pf, sh3, n_seg_t, seg, extent2, max_depth, beta_kill, sh_k, compact,
-        order_band,
+        order_band, early_exit,
     )
 
 

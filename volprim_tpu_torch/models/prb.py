@@ -77,6 +77,13 @@ from .base import pad_primitives
 
 _BIG_T = 1e7  # effective infinity for shadow-ray segment integrals
 
+# Stage stop of free_flight for the stage profilers (tools/ff_attrib.py):
+# None, or the stage after which free_flight returns early with
+# :func:`_ff_stop_out`'s outputs: "collect" (the jump path's optical depth,
+# or the sequential walk's interval collection), "escape" (the closed-form
+# escape decision) or "sort" (the needy-ray compaction). Read at each call.
+_FF_STOP = None
+
 
 @dataclasses.dataclass(frozen=True)
 class PRBConfig:
@@ -691,6 +698,21 @@ def _run_windows_pallas(prims, cfg, o, d, xi, entry, exit_t, ids, t_budget, t_ca
             density_at_sample, trans, torch.where(bdead, t_budget, torch.inf))
 
 
+def _ff_stop_out(o, *vals):
+    """free_flight's outputs at a stage stop (JAX's ``_ff_stop_out``): the
+    six tensors of its return structure, none found or dead, t_samp = +inf
+    and the first score 1, each plus the checksum of ``vals`` (the sum of
+    their finite values), so that the stage's results are read; albedo 0
+    and the second score 1."""
+    r = o.shape[0]
+    chk = sum(torch.sum(torch.where(torch.isfinite(v), v, 0.0)) for v in vals)
+    z = torch.zeros((r,), dtype=torch.bool, device=o.device)
+    return (z, z, torch.full((r,), torch.inf, dtype=o.dtype, device=o.device) + chk,
+            torch.zeros((r, 3), dtype=o.dtype, device=o.device),
+            torch.ones((r,), dtype=o.dtype, device=o.device) + chk,
+            torch.ones((r,), dtype=o.dtype, device=o.device))
+
+
 def _jump_walk(work, cfg, run_windows, o, d, xi, entry, exit_t, ids, tau_fin, t_budget, t_cap,
                needy):
     """Block jump + windows for a set of rays: start the walk at the first
@@ -744,6 +766,11 @@ def free_flight(
     score_escape [R]). ``dead`` marks rays that ran out of collection budget
     or windows before resolving. The score factors are numerically 1 but
     carry the gradients of the sampling density and survival probability.
+    With ``_FF_STOP`` set it returns :func:`_ff_stop_out` after that stage,
+    with JAX's checksums, except at "sort": the port compacts the needy rays
+    with ``torch.nonzero`` where JAX stable-sorts all rays (a permutation of
+    0..R-1), so that stop's checksum holds the needy rays' indices, not
+    JAX's order.
     ``index`` is :func:`build_ff_index`'s (built here when
     ``cfg.use_clusters`` and none is given). ``t_max`` [R] (optional) caps
     the march at a surface: rays reaching it unresolved escape with the
@@ -765,11 +792,15 @@ def free_flight(
 
     chi = -torch.log(torch.clamp(xi.detach(), min=1e-30))
     f_total = optical_depth(primitives, o, d, cfg)
+    if _FF_STOP == "collect":  # the decision pass (jump path)
+        return _ff_stop_out(o, f_total, chi)
     surface_capped = torch.isfinite(t_cap)
     will_cross = f_total.detach() > chi
     no_cross = active & ~will_cross & ~surface_capped
     trans_jump = torch.exp(-torch.clamp(f_total, min=0.0))
     needy = active & (will_cross | surface_capped)
+    if _FF_STOP == "escape":
+        return _ff_stop_out(o, f_total, trans_jump, needy.to(o.dtype))
 
     found = torch.zeros_like(needy)
     resolved = no_cross
@@ -778,6 +809,8 @@ def free_flight(
     density_at_sample = torch.ones((r,), dtype=o.dtype, device=dev)
     trans = trans_jump
     idx = torch.nonzero(needy)[:, 0]
+    if _FF_STOP == "sort":
+        return _ff_stop_out(o, idx.to(o.dtype), trans_jump)
     if idx.numel():
         o_n, d_n, xi_n, tc_n = o[idx], d[idx], xi[idx], t_cap[idx]
         entry, exit_t, ids, count, full_tau = _gather_intervals(
@@ -814,6 +847,8 @@ def _sequential_flight(primitives, index, work, cfg, run_windows, o, d, xi, acti
     r = o.shape[0]
     dev = o.device
     entry, exit_t, ids, t_budget, _ = _collect_intervals(primitives, index, o, d, cfg)
+    if _FF_STOP == "collect":
+        return _ff_stop_out(o, entry, exit_t, t_budget)
     found, resolved, _, t_samp, albedo, density, trans, t_stop = run_windows(
         work, cfg, o, d, xi, entry, exit_t, ids, t_budget, t_cap, active,
         torch.zeros((r,), dtype=o.dtype, device=dev), torch.ones((r,), dtype=o.dtype, device=dev),

@@ -39,11 +39,13 @@ plain PyTorch under autograd: JAX's backend is plain XLA too). With
 (``budget_classes``, ``kernel_compact``, ``cluster_sort``) are ignored by the
 others, as in JAX. Only the xla backend reads ``kernel_type``: the
 compositor kernels are Gaussian, as JAX's are. An emitter adds
-``beta * emitter.eval(d)`` per sample before the sRGB conversion. The fused
-compositor always walks a tile's full stream (its beta is the full capped
-product), so ``early_exit`` changes only the xla backend, which stops a tile
-once none of its rays is above ``beta_kill``. The TPU layout knobs
-(``feat_major``, ``kernel_batch``) have no counterpart.
+``beta * emitter.eval(d)`` per sample before the sRGB conversion.
+``early_exit`` stops a tile once none of its rays is under its hit cap and
+above ``beta_kill``: in the xla backend, and in the fused compositor without
+``kernel_compact`` (JAX takes its early-exit walk only there), so that beta,
+and with it an emitter's light, is the product up to where the tile
+stopped, as in JAX. The TPU layout knobs (``feat_major``, ``kernel_batch``)
+have no counterpart.
 
 ``_DEBUG_STOP`` (set by tools/profile_rf.py) makes a frame return early, as
 JAX's does: after the cull ("cull") or the pack ("pack"), or inside each
@@ -582,6 +584,7 @@ def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed,
                 sh_k=kl,
                 compact=cfg.kernel_compact,
                 order_band=band_here,
+                early_exit=cfg.early_exit,
             )
             if beta0 is None:
                 beta0 = beta[:, :rt]

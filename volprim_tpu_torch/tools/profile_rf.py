@@ -15,6 +15,7 @@ the 262,144-primitive synthetic surface scene, fused backend) into:
   cull_coarse    its strip stage alone (supercluster keys + shortlist)
   gather         the cluster gathers of one frame's shortlists alone
   kernel         composite3.composite_tiles3 alone over the gathered blocks
+                 (early exit on, no compaction, as JAX's kernel stage)
   clone          the DMA-floor probe of the same call shape (kernels/clone)
   segstats       the compositor's walked and live segments per tile
   abl_<name>     the kernel stage with one of the TPU kernel's timing
@@ -331,8 +332,9 @@ def main(argv=None) -> dict:
         n_seg_t = (-(-(cv.sum(dim=-1) * cs) // cfg.segment)).to(torch.int32)
         d8 = torch.cat([d_t.permute(0, 2, 1), torch.zeros((n_tiles, 5, tp), device=dev)],
                        dim=1).contiguous()
+        # JAX's kernel stage: early exit on, no compaction (tools/profile_rf.py:372-376)
         kw = dict(seg=cfg.segment, extent2=9.0, max_depth=128, beta_kill=0.01,
-                  sh_k=state.sh_k)
+                  sh_k=state.sh_k, early_exit=True)
 
     if "kernel" in stages:
         def kern(s):
