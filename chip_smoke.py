@@ -313,6 +313,25 @@ walk and the path tracer's stage profilers:
     launched csrc/ffwalk.cu, and each _FF_STOP stage must take no longer
     than the full free_flight by more than the two rows' spread of reps.
 
+Then the tiled renderer's quality studies (volprim_tpu_torch.tools, each
+run in-process, its printed lines echoed and its JSON line read back):
+
+40. quality_studies: convergence_eval through the fused backend at
+    QS_ITERS steps (cut from 150; its forward and backward kernels launched
+    once a step each), analyze_rf at its defaults (the headline scene at
+    512^2: need, survival, PSNR by budget against an exact reference made
+    on the card), diag2m's default configurations and noise floor on
+    QS_DIAG_PRIMS primitives (cut from 2,097,152); every JSON line must
+    parse and equal what the tool returned, every PSNR be finite. The
+    compositor launches of the fit and of analyze_rf's frames are recorded:
+    the first and last steps' forward and backward launches and each
+    budget's first frame are replayed against the plain versions at phase
+    7's tolerances, and each budget's other timed frames must have had the
+    same inputs. The fit must end above its initial scene's held-out PSNR,
+    and both of analyze_rf's frames (2,048 and 8,192 candidates) score at
+    least QS_PSNR_DB against the card-made exact reference; the phase's
+    seconds.
+
 Then the total seconds, a JSON line with each kernel's numbers (the walk's
 with its launches, kernel ms and bound on the sequential, cluster,
 coeff_gemm, surface-capped and radiance-cache paths and its launches in
@@ -328,7 +347,9 @@ tomography steps there.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import inspect
 import json
 import math
@@ -3467,14 +3488,14 @@ def early_exit_phase(composite3, rf_tiled, scene, cameras_json, dev, details) ->
     opacity at 0.99 are added (EE_SYNTH)."""
     from volprim_tpu_torch import train
     from volprim_tpu_torch.examples import refine_3dg_dataset as refine
-    from volprim_tpu_torch.scene import JSONCameraSpecsIO
+    from volprim_tpu_torch.scene import JSONCameraSpecsIO, synthetic
     from volprim_tpu_torch.tools import profile_rf
 
     t_phase = time.perf_counter()
     cameras = refine.select_cameras(JSONCameraSpecsIO.load(cameras_json), 8, 0.125)
     rcfg = refine.tiled_config(cameras[0], 128, "gaussian")
     pargs = profile_rf._parser().parse_args([])
-    pcfg, pcam = profile_rf.config(pargs), profile_rf.camera()
+    pcfg, pcam = profile_rf.config(pargs), synthetic.headline_camera(profile_rf.WIDTH)
     pstate = rf_tiled.build_state(scene, pcfg)
     sets, launches = {}, 0
     for name, fn in (
@@ -3580,6 +3601,143 @@ def prb_profiler_phase(details) -> dict:
     return res
 
 
+# ---- 40. the quality studies ---------------------------------------------
+
+# convergence_eval's steps and diag2m's primitives in phase 40 (their
+# defaults: 150 and 2,097,152); the headline frame's floor against exact
+QS_ITERS, QS_DIAG_PRIMS, QS_PSNR_DB = 20, 262144, 20.0
+
+
+def run_tool(main, argv) -> dict:
+    """A tool's ``main(argv)`` in-process with its output captured and then
+    echoed: the JSON object of its last line, which must equal what main
+    returned."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    last = json.loads(text.strip().splitlines()[-1])
+    if last != json.loads(json.dumps(res)):
+        fail(f"{main.__module__}: its JSON line differs from its result")
+    return last
+
+
+def replay_bwd(composite3, a, reps=3) -> dict:
+    """A recorded ``composite3._launch_bwd`` argument tuple replayed through
+    the wrapper against the plain version, as phase 7 replays its step's
+    (:func:`check_bwd`: gradients held to the f64 yardstick by
+    compare_grads), with both times."""
+    d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth, beta_kill, sh_k, compact, band = a
+    bkw = dict(seg=seg, extent2=extent2, max_depth=max_depth, beta_kill=beta_kill, sh_k=sh_k,
+               order_band=band)
+    cmp_, ms, plain_ms = check_bwd(composite3, (d8, pf, sh3, n_seg_t, g_l, g_beta), bkw,
+                                   compact, reps)
+    cmp_["gpf"].pop("rows")
+    return dict(tiles=int(d8.shape[0]), rays=int(d8.shape[2]), S=int(pf.shape[2]),
+                compact=bool(compact), order_band=band, **cmp_, ms=ms, plain_ms=plain_ms)
+
+
+def same_inputs(a, b) -> bool:
+    """Two recorded launches' argument tuples equal, element for element."""
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
+
+
+def quality_studies_phase(composite3, details) -> dict:
+    """Phase 40: convergence_eval (fused, QS_ITERS steps), analyze_rf (its
+    defaults) and diag2m (its default configurations and the noise floor
+    on QS_DIAG_PRIMS primitives), in-process; their JSON lines checked.
+    The fused training's forward and backward launches, and analyze_rf's
+    forward launches, are recorded (counts set to 0 just before each tool,
+    read just after): the first and last training steps' launches, and the
+    first frame's launch at each of analyze_rf's budgets, replayed against
+    the plain versions (:func:`check_fwd3`, :func:`replay_bwd`); the other
+    timed frames of a budget must have had the same inputs. Gates: the
+    fused fit ends above its initial scene's held-out PSNR, and both of
+    analyze_rf's frames score at least QS_PSNR_DB against the card-made
+    exact reference."""
+    from volprim_tpu_torch.tools import analyze_rf, convergence_eval, diag2m
+
+    t_phase = time.perf_counter()
+    fwd, bwd = composite3.composite_tiles3, composite3.composite_tiles3_bwd
+    (conv, n_bwd, rec_b), n_fwd, rec_f = record_launches(
+        composite3, "_launch", fwd,
+        lambda: record_launches(composite3, "_launch_bwd", bwd, lambda: run_tool(
+            convergence_eval.main, ["--iters", str(QS_ITERS), "--backend", "fused"])))
+    if (n_fwd, n_bwd, len(rec_f), len(rec_b)) != (QS_ITERS,) * 4 or (
+            conv["launches_fwd"], conv["launches_bwd"]) != (QS_ITERS, QS_ITERS):
+        fail(f"quality_studies: convergence_eval's fused training launched the forward "
+             f"{n_fwd} and the backward {n_bwd} times (the tool counted "
+             f"{conv['launches_fwd']}, {conv['launches_bwd']}), expected {QS_ITERS} each")
+    steps = {}
+    for i in (0, QS_ITERS - 1):
+        steps[i] = dict(fwd=check_fwd3(composite3, rec_f[i], reps=3),
+                        bwd=replay_bwd(composite3, rec_b[i]))
+        phase("quality_studies_train_step", step=i, **steps[i])
+    del rec_f, rec_b
+
+    frames = 1 + analyze_rf.FRAME_REPS  # the frames analyze_rf renders a budget
+    ana, n_ana, rec_a = record_launches(composite3, "_launch", fwd,
+                                        lambda: run_tool(analyze_rf.main, []))
+    if n_ana != 2 * frames or len(rec_a) != 2 * frames:
+        fail(f"quality_studies: analyze_rf's frames launched the forward {n_ana} times "
+             f"({len(rec_a)} recorded), expected {2 * frames} (one a frame)")
+    budgets = {}
+    for mc, first in ((ana["mc"], 0), (4 * ana["mc"], frames)):
+        row = check_fwd3(composite3, rec_a[first], reps=3)
+        row["timed_frames_same_inputs"] = all(
+            same_inputs(rec_a[first], rec_a[first + k]) for k in range(1, frames))
+        budgets[mc] = row
+        phase("quality_studies_frame", mc=mc, **row)
+        if row["S"] != mc:
+            fail(f"quality_studies: analyze_rf's frame at {mc} candidates launched the "
+                 f"forward on {row['S']} columns")
+    del rec_a
+
+    diag = run_tool(diag2m.main, ["--prims", str(QS_DIAG_PRIMS), *diag2m.DEFAULT, "noise"])
+    frame_db = {int(k): v for k, v in ana["quality"]["psnr_db"].items()}
+    psnrs = ([conv[k] for k in ("psnr_init", "psnr_tiled", "psnr_exact")]
+             + list(frame_db.values())
+             + [c["psnr_db"] for c in diag["configs"].values()] + [diag["noise"]["psnr_db"]])
+    res = dict(
+        convergence=dict(psnr_init=conv["psnr_init"], psnr_tiled=conv["psnr_tiled"],
+                         psnr_exact=conv["psnr_exact"], ms_per_step=conv["ms_per_step"],
+                         launches_fwd=n_fwd, launches_bwd=n_bwd,
+                         replayed_ok={i: st["fwd"]["ok"] and st["bwd"]["ok"]
+                                      for i, st in steps.items()}),
+        analyze_rf=dict(psnr_db=ana["quality"]["psnr_db"], need_mean=ana["need"]["mean"],
+                        exact_s=ana["exact"]["seconds"],
+                        noise_floor_db=ana["exact"]["noise_floor_db"], launches=n_ana,
+                        replayed_ok={mc: r["ok"] and r["timed_frames_same_inputs"]
+                                     for mc, r in budgets.items()}),
+        diag2m=dict(psnr_db={k: c["psnr_db"] for k, c in diag["configs"].items()},
+                    noise_db=diag["noise"]["psnr_db"], exact_s=diag["exact"]["seconds"]),
+        seconds=round(time.perf_counter() - t_phase, 2),
+    )
+    phase("quality_studies", **res)
+    details["quality_studies"] = dict(convergence_eval=conv, analyze_rf=ana, diag2m=diag,
+                                      train_steps=steps, frames=budgets)
+    if not all(math.isfinite(v) for v in psnrs):
+        fail(f"quality_studies: a PSNR is not finite: {psnrs}")
+    if not all(res["convergence"]["replayed_ok"].values()):
+        fail(f"quality_studies: a compositor kernel disagrees with its plain version on "
+             f"convergence_eval's training steps {res['convergence']['replayed_ok']}")
+    if not all(res["analyze_rf"]["replayed_ok"].values()):
+        fail(f"quality_studies: the forward kernel disagrees with its plain version on "
+             f"analyze_rf's frames, or a timed frame's inputs changed "
+             f"{res['analyze_rf']['replayed_ok']}")
+    if not conv["psnr_tiled"] > conv["psnr_init"]:
+        fail(f"quality_studies: the fused fit scores {conv['psnr_tiled']:.2f} dB held out, "
+             f"not above its initial scene's {conv['psnr_init']:.2f}")
+    low = {mc: db for mc, db in frame_db.items() if not db >= QS_PSNR_DB}
+    if low:
+        fail(f"quality_studies: analyze_rf's frames score {low} dB against the card-made "
+             f"exact reference (floor {QS_PSNR_DB})")
+    return res
+
+
 DP_DIR = os.path.join("build", "chip_smoke_dp")
 # the dryrun's batch-sensor step (__graft_entry__.dryrun_multichip: rf at
 # max_depth 8, L1 against a zero image, BoundedAdam at lr 1e-2 with bounded
@@ -3602,14 +3760,6 @@ DP_CAMS, DP_CAM_SCALE = 8, 0.125
 # in norm).
 DP_GRAD_RTOL, DP_GRAD_ATOL = 1e-3, 1e-8
 DP_PSNR_DB = 25.0
-
-
-def headline_camera():
-    """bench.py's headline camera at WIDTH^2."""
-    from volprim_tpu_torch.scene import CameraSpecs, look_at
-
-    return CameraSpecs(name="bench", width=WIDTH, height=WIDTH,
-                       to_world=look_at([0, 0.4, -3.2], [0, 0, 0], [0, 1, 0]), fov=50.0)
 
 
 def dp_train_step(scene, camera, mesh):
@@ -3716,7 +3866,7 @@ def dp_rank(args) -> None:
     torch.cuda.reset_peak_memory_stats(dev)  # (after the first allocation on dev)
     floor = ref.pop("floor")
     scene = synthetic.make_scene(N_PRIMS, device=dev)
-    camera = headline_camera()
+    camera = synthetic.headline_camera(WIDTH)
     fwd, bwd = composite3.composite_tiles3, composite3.composite_tiles3_bwd
     res = dict(backend=backend, world=world, rank=rank, device=str(dev))
 
@@ -3840,10 +3990,11 @@ def data_parallel(scene, details) -> dict:
     parameters after each step equal on every rank. Prints one line a
     rank; returns the compositor launches the ranks made."""
     from volprim_tpu_torch.models import rf_tiled
+    from volprim_tpu_torch.scene import synthetic
 
     t_phase = time.perf_counter()
     os.makedirs(DP_DIR, exist_ok=True)
-    camera = headline_camera()
+    camera = synthetic.headline_camera(WIDTH)
     ref = {}
     with torch.no_grad():
         for tag, kw in (("train", TRAIN), ("headline", HEADLINE)):
@@ -4011,7 +4162,7 @@ def main() -> None:
     t0 = time.perf_counter()
     scene = synthetic.make_scene(N_PRIMS, device=dev)
     cfg = rf_tiled.RFTiledConfig(**HEADLINE)
-    camera = headline_camera()
+    camera = synthetic.headline_camera(WIDTH)
     state = rf_tiled.build_state(scene, cfg)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -4503,6 +4654,8 @@ def main() -> None:
     ee = early_exit_phase(composite3, rf_tiled, scene, asset_cams, dev, details)
     # ---- 39. the path tracer's stage profilers -----------------------------
     prb_prof = prb_profiler_phase(details)
+    # ---- 40. the quality studies ---------------------------------------------
+    quality_studies_phase(composite3, details)
     new_walks = {"sequential": paths["sequential_pallas"]["walk"],
                  "clusters": paths["clusters_pallas"]["walk"],
                  "coeff_gemm": paths["coeff_gemm_pallas"]["walk"], "surfaces": surf["walk"],

@@ -82,7 +82,7 @@ def test_debug_stops_match_jax(stop, monkeypatch):
     cfg_j = jrt.RFTiledConfig(**{f.name: getattr(cfg_t, f.name)
                                  for f in cfg_t.__dataclass_fields__.values()})
     assert cfg_t.refine_fraction == 0.125
-    cam_t = profile_rf.camera()
+    cam_t = synthetic.headline_camera(WIDTH)
     cam_j = jscene.CameraSpecs(name="bench", width=WIDTH, height=WIDTH, fov=50.0,
                                to_world=cam_t.to_world)
     state_t = trt.build_state(synthetic.make_scene(N_PRIMS, device="cpu"), cfg_t)

@@ -771,15 +771,22 @@ def _render_shortlist(state, emitter, ids, valid, origin, dirs_cols, px0, py0, t
 _GROUP_PAIRS = 1 << 28
 
 
+def xla_step_tiles(n_tiles: int, rt: int, s: int, cfg) -> int:
+    """Tiles in one vectorised step of the xla backend on a film of
+    ``n_tiles`` tiles of ``rt`` rays and ``s`` shortlist columns:
+    max(cfg.tile_group, _GROUP_PAIRS // (RT S)), at most the film's."""
+    return min(n_tiles, max(cfg.tile_group, _GROUP_PAIRS // (rt * s)))
+
+
 def _composite_tiles_xla(origin, d, pf, opac, sh48, valid, basis_k, extent, cfg):
-    """The xla backend over every tile, in steps of
-    max(cfg.tile_group, _GROUP_PAIRS // (RT S)) tiles (the last step may
-    be short). Under autograd every step's intermediates stay saved (40.0
-    GiB at the headline train step, on the card; scripts/xla_memory.py).
+    """The xla backend over every tile, in steps of :func:`xla_step_tiles`
+    tiles (the last step may be short). Under autograd every step's
+    intermediates stay saved (40.0 GiB at the headline train step, on the
+    card; scripts/xla_memory.py).
     d [T, RT, 3], pf [T, S, 16], opac [T, S], sh48 [T, S, 48], valid [T, S]
     -> (L [T, RT, 3], beta [T, RT])."""
     n_tiles, rt = d.shape[:2]
-    g = min(n_tiles, max(cfg.tile_group, _GROUP_PAIRS // (rt * pf.shape[1])))
+    g = xla_step_tiles(n_tiles, rt, pf.shape[1], cfg)
     parts = [
         _composite_group_xla(origin, d[t0:t0 + g], pf[t0:t0 + g], opac[t0:t0 + g],
                              sh48[t0:t0 + g], valid[t0:t0 + g], basis_k, extent, cfg)

@@ -5,7 +5,8 @@
   thin anisotropic splats tangent to three bumpy spheres plus a ground
   sheet on y = -1, opacities in [0.55, 0.99] and degree-1 SH (k = 4
   coefficients per channel).
-- ``orbit_cameras``: the headline camera and more on its orbit.
+- ``headline_camera``: bench.py's headline camera; ``orbit_cameras``: it
+  and more on its orbit.
 - ``make_medium``: the "plume", a scattering medium of Gaussian primitives
   for the path tracer, drawn from the closed-form plume density of the JAX
   package's ``scene.vol.procedural_smoke`` (its stand-in for the missing
@@ -113,6 +114,15 @@ def make_scene(n_prims: int, seed: int = 0, device=None) -> EllipsoidScene:
         centers=t(a["centers"]), scales=t(a["scales"]), quats=t(a["quats"]),
         attrs={"opacities": t(a["opacities"]), "sh_coeffs": t(a["sh_coeffs"])},
     )
+
+
+def headline_camera(width: int = 512):
+    """bench.py's headline camera (eye (0, 0.4, -3.2) looking at the origin,
+    fov 50) on a square film of ``width``."""
+    from .cameras import CameraSpecs, look_at
+
+    return CameraSpecs(name="bench", width=width, height=width,
+                       to_world=look_at([0, 0.4, -3.2], [0, 0, 0], [0, 1, 0]), fov=50.0)
 
 
 def orbit_cameras(width: int = 512, count: int = 8, fov: float = 50.0) -> list:

@@ -29,7 +29,8 @@ import time
 
 import torch
 
-from .profile_prb import BASE, camera, device_of, plume, uniform_xi
+from . import studies
+from .profile_prb import BASE, camera, plume, uniform_xi
 from .profile_rf import _timeit
 
 STOPS = ("collect", "escape", "sort", None, "full_xi_rand")
@@ -47,7 +48,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--res", type=int, default=256, help="film side")
     args = ap.parse_args(argv)
-    dev = device_of(args)
+    dev = studies.device_of(args.cpu)
     from ..models import prb
     from ..scene import generate_rays
 

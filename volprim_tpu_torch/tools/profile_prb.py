@@ -44,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from . import studies
 from .profile_rf import _timeit
 
 # JAX's profiler configuration (tools/profile_prb.py:53-56)
@@ -82,16 +83,6 @@ def _parser():
     return ap
 
 
-def device_of(args) -> torch.device:
-    """The card unless ``--cpu``; exits when there is no card."""
-    if args.cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA card (torch.cuda.is_available() is False); "
-                         "pass --cpu to profile on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
-
-
 def plume(dev):
     """The profiled medium: the plume with sigma_t x 10."""
     from ..scene import synthetic
@@ -127,7 +118,7 @@ def main(argv=None) -> dict:
     "window_stats" and the walk kernel's launches per walk=pallas row under
     "walk_launches"."""
     args = _parser().parse_args(argv)
-    dev = device_of(args)
+    dev = studies.device_of(args.cpu)
     from ..kernels import ffwalk
     from ..models import prb, render
     from ..ops import envmap

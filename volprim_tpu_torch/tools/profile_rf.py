@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..kernels.composite3 import ABLATIONS
+from . import studies
 
 # the bench scene and film (tests shrink them)
 N_PRIMS = 262144
@@ -113,15 +114,6 @@ def config(args):
     )
 
 
-def camera(width=None):
-    """bench.py's camera at ``width`` (default WIDTH) square."""
-    from ..scene import CameraSpecs, look_at
-
-    w = width or WIDTH
-    return CameraSpecs(name="bench", width=w, height=w,
-                       to_world=look_at([0, 0.4, -3.2], [0, 0, 0], [0, 1, 0]), fov=50.0)
-
-
 @torch.no_grad()
 def main(argv=None) -> dict:
     """Run the requested stages; returns {stage: ms}."""
@@ -142,13 +134,7 @@ def main(argv=None) -> dict:
     if args.kernel_batch != 1:
         raise SystemExit("--kernel_batch is a TPU grid knob with no counterpart in the "
                          "port (ROADMAP.md §D)")
-    if args.cpu:
-        dev = torch.device("cpu")
-    elif torch.cuda.is_available():
-        dev = torch.device("cuda", torch.cuda.current_device())
-    else:
-        raise SystemExit("no CUDA card (torch.cuda.is_available() is False); "
-                         "pass --cpu to profile on the CPU")
+    dev = studies.device_of(args.cpu)
 
     from ..accel import tiles as tiling
     from ..kernels import clone as clone_mod
@@ -157,7 +143,7 @@ def main(argv=None) -> dict:
     from ..scene import generate_rays, synthetic
 
     cfg = config(args)
-    cam = camera()
+    cam = synthetic.headline_camera(WIDTH)
     scene = synthetic.make_scene(N_PRIMS, device=dev)
     state = rf_tiled.build_state(scene, cfg)
     spp = args.spp
