@@ -332,11 +332,34 @@ run in-process, its printed lines echoed and its JSON line read back):
     least QS_PSNR_DB against the card-made exact reference; the phase's
     seconds.
 
+Then the root studies (volprim_tpu_torch.tools, in-process as in phase 40):
+
+41. root_studies: refine_truck at RS_SPLATS splats, RS_RES^2, RS_SPP spp
+    and RS_ITERS steps (cut from 1,048,576, 256^2, 4 and 256; its 8 + 2
+    ring cameras, --perturb strong, the workdir RS_DIR made anew): the
+    ground truth and held-out scores by the exact renderer made on the
+    card, training through the refine CLI's fused compositor (early exit
+    on), the tiled evaluation; truck_bound on its held-out images at the
+    same size and spp; band262k at its defaults (262,144 primitives, 512^2,
+    all eight configurations). refine_truck's forward and backward
+    launches are recorded and split by the tool's own counts: the first
+    and last steps' launches (a forward and a backward per camera) and
+    each tiled evaluation's first launch are replayed against the plain
+    versions at phase 7's tolerances, and the first step's bounds are
+    computed. The CLI's loss must fall and the refined asset's tiled
+    held-out PSNR lie above its initial asset's (the exact-scored PSNRs
+    are recorded, not gated); truck_bound's 8,192 candidates must bound no
+    lower than 2,048; every band262k row must score at least RS_PSNR_DB
+    against the card-made exact reference and mc4096-csort-band16 not
+    below mc4096; the phase's seconds.
+
 Then the total seconds, a JSON line with each kernel's numbers (the walk's
 with its launches, kernel ms and bound on the sequential, cluster,
 coeff_gemm, surface-capped and radiance-cache paths and its launches in
 phase 39; the compositors' with the launches of phase 37's ranks, by
-backend and rank; the forward's with phase 38's early-exit walk), the card's
+backend and rank; the forward's with phase 38's early-exit walk; both
+with phase 41's launches and its first refine step's kernel, plain and
+bound times), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero. There is no CPU mode: without a CUDA card it exits with an
 error. ``--out DIR`` also writes the details and torch.profiler tables of
@@ -719,6 +742,12 @@ def fwd_work(composite3, a) -> dict:
             for c in (slice(t0, t0 + TILE_CHUNK) for t0 in range(0, a[0].shape[0], TILE_CHUNK))
         ])
     return work(composite3, *a[:4], a[4], a[5], a[6], a[8], a[9], a[10], walked=walked)
+
+
+def bwd_work(composite3, a) -> dict:
+    """:func:`work` of one recorded ``composite3._launch_bwd`` argument
+    tuple ``a``."""
+    return work(composite3, *a[:4], a[6], a[7], a[8], a[10], a[11], a[12])
 
 
 def bf16_ulp(x):
@@ -3738,6 +3767,142 @@ def quality_studies_phase(composite3, details) -> dict:
     return res
 
 
+# ---- 41. the root studies -------------------------------------------------
+
+# refine_truck's and truck_bound's depth in phase 41 (their defaults: 1,048,576
+# splats, 256^2, 4 spp, 256 steps); band262k's floor against exact
+RS_SPLATS, RS_RES, RS_SPP, RS_ITERS, RS_PSNR_DB = 131072, 64, 2, 16, 20.0
+RS_DIR = os.path.join("build", "chip_smoke_truck")
+
+
+def replay_summary(rows, kind) -> dict:
+    """The replays of a set of launches: all within tolerance, the largest
+    errors, the kernel's and the plain version's ms summed."""
+    keys = ("L", "beta") if kind == "fwd" else ("gpf", "gsh")
+    return dict(ok=all(r_["ok"] for r_ in rows), launches=len(rows),
+                max_abs={k: max(r_[k]["max_abs"] for r_ in rows) for k in keys},
+                ms=sum(r_["ms"] for r_ in rows), plain_ms=sum(r_["plain_ms"] for r_ in rows))
+
+
+def root_studies_phase(composite3, details) -> dict:
+    """Phase 41: refine_truck (RS_SPLATS splats, RS_RES^2, RS_SPP spp,
+    RS_ITERS steps, --perturb strong, 8 + 2 cameras, its own workdir
+    RS_DIR), truck_bound on its held-out images at the same size and spp,
+    and band262k at its defaults, in-process; their JSON lines checked.
+    refine_truck's fused launches are recorded (counts set to 0 just before
+    the tool, read just after) and split by the tool's own counts into the
+    refine CLI's steps (a forward and a backward launch per camera a step,
+    early exit on) and the three tiled evaluations: the first and last
+    steps' launches and each evaluation's first launch are replayed against
+    the plain versions at phase 7's tolerances (:func:`check_fwd3`,
+    :func:`replay_bwd`). Gates: the CLI's loss falls; the refined asset's
+    tiled held-out PSNR lies above its initial asset's (the exact-scored
+    PSNRs are recorded only); 8,192 candidates bound no lower than 2,048;
+    every band262k row scores at least RS_PSNR_DB against the card-made
+    exact reference and mc4096-csort-band16 not below mc4096."""
+    import shutil
+
+    from volprim_tpu_torch.tools import band262k, refine_truck, truck_bound
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RS_DIR, ignore_errors=True)
+    fwd, bwd = composite3.composite_tiles3, composite3.composite_tiles3_bwd
+    argv = ["--n_splats", str(RS_SPLATS), "--res", str(RS_RES), "--spp", str(RS_SPP),
+            "--iterations", str(RS_ITERS), "--perturb", "strong", "--workdir", RS_DIR]
+    (truck, n_bwd, rec_b), n_fwd, rec_f = record_launches(
+        composite3, "_launch", fwd,
+        lambda: record_launches(composite3, "_launch_bwd", bwd,
+                                lambda: run_tool(refine_truck.main, argv)))
+    counted, cams = truck["launches"], truck["train_cams"]
+    evals = counted["tiled_eval_fwd"]
+    n_train = RS_ITERS * cams
+    if ((counted["train_fwd"], counted["train_bwd"], n_bwd, len(rec_b)) != (n_train,) * 4
+            or not n_fwd == len(rec_f) == n_train + sum(evals.values())
+            or not all(evals.values()) or not all(a[11] for a in rec_f)):
+        fail(f"root_studies: refine_truck launched the forward {n_fwd} and the backward "
+             f"{n_bwd} times (the tool counted {counted}), expected {n_train} each in "
+             f"training plus the tiled evaluations' forwards, all with early exit")
+    steps, bounds = {}, {}
+    for i in (0, RS_ITERS - 1):
+        sl = slice(i * cams, (i + 1) * cams)
+        steps[i] = dict(
+            fwd=replay_summary([check_fwd3(composite3, a, reps=3) for a in rec_f[sl]], "fwd"),
+            bwd=replay_summary([replay_bwd(composite3, a) for a in rec_b[sl]], "bwd"))
+        phase("root_studies_train_step", step=i, **steps[i])
+    bounds["fwd"] = [fwd_work(composite3, a) for a in rec_f[:cams]]
+    bounds["bwd"] = [bwd_work(composite3, a) for a in rec_b[:cams]]
+    evals_rows, first = {}, n_train
+    for key, n in evals.items():
+        evals_rows[key] = check_fwd3(composite3, rec_f[first], reps=3)
+        phase("root_studies_tiled_eval", scene=key, launches=n, **evals_rows[key])
+        first += n
+    del rec_f, rec_b
+
+    images = os.path.join(RS_DIR, "images")
+    bound = run_tool(truck_bound.main, ["--n_splats", str(RS_SPLATS), "--res", str(RS_RES),
+                                        "--spp", str(RS_SPP), "--images", images])
+    band = run_tool(band262k.main, [])
+    band_db = {k: v["psnr_db"] for k, v in band["configs"].items()}
+    fwd_b = [w["fwd_bound_ms"] for w in bounds["fwd"]]
+    bwd_b = [w["bwd_bound_ms"] for w in bounds["bwd"]]
+    res = dict(
+        refine_truck=dict(
+            psnr_db=truck["psnr_db"], loss_first=truck["loss_first"],
+            loss_last=truck["loss_last"], seconds=truck["seconds"],
+            train_wall_s=truck["train_wall_s"], train_peak_gib=truck["train_peak_gib"],
+            launches_fwd=n_fwd, launches_bwd=n_bwd, launches_train=n_train,
+            launches_tiled_eval=evals,
+            replayed_ok={**{f"step{i}": st["fwd"]["ok"] and st["bwd"]["ok"]
+                            for i, st in steps.items()},
+                         **{f"eval_{k}": r_["ok"] for k, r_ in evals_rows.items()}}),
+        step_kernels=dict(
+            fwd_ms=steps[0]["fwd"]["ms"], fwd_plain_ms=steps[0]["fwd"]["plain_ms"],
+            fwd_bound_ms=sum(fwd_b),
+            fwd_bound_by=max(bounds["fwd"], key=lambda w: w["fwd_bound_ms"])["fwd_bound_by"],
+            bwd_ms=steps[0]["bwd"]["ms"], bwd_plain_ms=steps[0]["bwd"]["plain_ms"],
+            bwd_bound_ms=sum(bwd_b),
+            bwd_bound_by=max(bounds["bwd"], key=lambda w: w["bwd_bound_ms"])["bwd_bound_by"]),
+        truck_bound={k: v for k, v in bound.items() if k.startswith("bound_mc")},
+        band262k=dict(psnr_db=band_db, exact_s=band["exact"]["seconds"],
+                      seconds={k: v["seconds"] for k, v in band["configs"].items()}),
+        seconds=round(time.perf_counter() - t_phase, 2),
+    )
+    res["max_abs_err"] = max([st["fwd"]["max_abs"][x] for st in steps.values()
+                              for x in ("L", "beta")]
+                             + [r_[x]["max_abs"] for r_ in evals_rows.values()
+                                for x in ("L", "beta")])
+    res["max_abs_err_bwd"] = max(st["bwd"]["max_abs"][x] for st in steps.values()
+                                 for x in ("gpf", "gsh"))
+    phase("root_studies", **res)
+    details["root_studies"] = dict(refine_truck=truck, truck_bound=bound, band262k=band,
+                                   train_steps=steps, tiled_evals=evals_rows)
+    psnrs = list(truck["psnr_db"].values()) + list(band_db.values()) + [
+        v for k, v in bound.items() if k.startswith("bound_mc")]
+    if not all(math.isfinite(v) for v in psnrs):
+        fail(f"root_studies: a PSNR is not finite: {psnrs}")
+    if not all(res["refine_truck"]["replayed_ok"].values()):
+        fail(f"root_studies: a compositor kernel disagrees with its plain version on "
+             f"refine_truck's launches {res['refine_truck']['replayed_ok']}")
+    if not truck["loss_last"] < truck["loss_first"]:
+        fail(f"root_studies: the refine CLI's loss went {truck['loss_first']} -> "
+             f"{truck['loss_last']}")
+    p = truck["psnr_db"]
+    if not p["refined_tiled"] > p["init_tiled"]:
+        fail(f"root_studies: the refined asset scores {p['refined_tiled']:.2f} dB tiled held "
+             f"out, not above its initial asset's {p['init_tiled']:.2f}")
+    if not bound["bound_mc8192_db"] >= bound["bound_mc2048_db"]:
+        fail(f"root_studies: truck_bound at 8,192 candidates {bound['bound_mc8192_db']} dB, "
+             f"below 2,048's {bound['bound_mc2048_db']}")
+    low = {k: db for k, db in band_db.items() if not db >= RS_PSNR_DB}
+    if low:
+        fail(f"root_studies: band262k rows score {low} dB against the card-made exact "
+             f"reference (floor {RS_PSNR_DB})")
+    if not band_db["mc4096-csort-band16"] >= band_db["mc4096"]:
+        fail(f"root_studies: band262k's mc4096-csort-band16 {band_db['mc4096-csort-band16']:.2f}"
+             f" dB below mc4096's {band_db['mc4096']:.2f}")
+    return res
+
+
 DP_DIR = os.path.join("build", "chip_smoke_dp")
 # the dryrun's batch-sensor step (__graft_entry__.dryrun_multichip: rf at
 # max_depth 8, L1 against a zero image, BoundedAdam at lr 1e-2 with bounded
@@ -4656,6 +4821,8 @@ def main() -> None:
     prb_prof = prb_profiler_phase(details)
     # ---- 40. the quality studies ---------------------------------------------
     quality_studies_phase(composite3, details)
+    # ---- 41. the root studies ------------------------------------------------
+    rs = root_studies_phase(composite3, details)
     new_walks = {"sequential": paths["sequential_pallas"]["walk"],
                  "clusters": paths["clusters_pallas"]["walk"],
                  "coeff_gemm": paths["coeff_gemm_pallas"]["walk"], "surfaces": surf["walk"],
@@ -4692,12 +4859,13 @@ def main() -> None:
            ee["max_abs_err"]]
         + [r_[x]["max_abs"] for r_ in prof["rows"] + [band_step["fwd"], drift_step["fwd"]]
            + band_checks for x in ("L", "beta")]
+        + [rs["max_abs_err"]]
     )
     worst_bwd = max(
         [c[x]["max_abs"] for c in bwd_checks + [details["train_step"]["bwd"], band_step["bwd"],
                                                 drift_step["bwd"]]
          for x in ("gpf", "gsh")]
-        + [cli["refine_gaussian"]["bwd_max_abs_err"]]
+        + [cli["refine_gaussian"]["bwd_max_abs_err"], rs["max_abs_err_bwd"]]
     )
     fwd_bound = sum(w["fwd_bound_ms"] for w in frame_work)
     phase("total", seconds=round(time.perf_counter() - t_start, 2))
@@ -4740,6 +4908,12 @@ def main() -> None:
         "bound_by_early_exit": ee["bound_by"],
         "segments_walked_early_exit": ee["segments_walked"],
         "segments_live_early_exit": ee["segments_live"],
+        "launches_root_studies": rs["refine_truck"]["launches_fwd"],
+        "launches_root_studies_train": rs["refine_truck"]["launches_train"],
+        "ms_root_studies_step": rs["step_kernels"]["fwd_ms"],
+        "plain_ms_root_studies_step": rs["step_kernels"]["fwd_plain_ms"],
+        "bound_ms_root_studies_step": rs["step_kernels"]["fwd_bound_ms"],
+        "bound_by_root_studies_step": rs["step_kernels"]["fwd_bound_by"],
     }, {
         "name": "composite3_bwd",
         "route": "cuda",
@@ -4762,6 +4936,11 @@ def main() -> None:
         "ms_cli_refine": cli["refine_gaussian"]["bwd_ms"],
         "plain_ms_cli_refine": cli["refine_gaussian"]["bwd_plain_ms"],
         "bound_ms_cli_refine": cli["refine_gaussian"]["bwd_bound_ms"],
+        "launches_root_studies": rs["refine_truck"]["launches_bwd"],
+        "ms_root_studies_step": rs["step_kernels"]["bwd_ms"],
+        "plain_ms_root_studies_step": rs["step_kernels"]["bwd_plain_ms"],
+        "bound_ms_root_studies_step": rs["step_kernels"]["bwd_bound_ms"],
+        "bound_by_root_studies_step": rs["step_kernels"]["bwd_bound_by"],
     }, {
         "name": "ffwalk",
         "route": "cuda",

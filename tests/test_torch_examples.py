@@ -78,6 +78,8 @@ def test_refine(asset, tmp_path, kernel, renderer, refs):
         args += ["--selfref"]
     out = refine.main(args)
     assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    assert len(out["step_seconds"]) == 2 and min(out["step_seconds"]) > 0.0
+    assert out["final_seconds"] > 0.0 and out["train_peak_bytes"] is None
     assert (tmp_path / "reference.png").exists() and (tmp_path / "frame_0001.png").exists()
     a = load_asset(str(tmp_path / "refined_asset"), device="cpu")
     assert a["primitives"].num_prims == 2048 and len(a["cameras"]) == 4

@@ -17,13 +17,16 @@ reference: ``--images`` holds one ``<camera name>.npy`` per camera, else
 compositor's forward and backward kernels for the Gaussian kernel, the xla
 backend for the Epanechnikov kernel), ``exact`` through the exact-order
 integrator. Prints one line per step and writes the refined asset to
-``<output>/refined_asset``.
+``<output>/refined_asset``; ``main`` returns the losses, PSNRs and seconds
+of the steps and of the final exact render at ``--ref_spp``, and on the card
+the peak of allocated memory read after the steps, before that render.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 from os.path import join
 
 import numpy as np
@@ -126,8 +129,9 @@ def main(argv=None) -> dict:
             return _batch(scene, cameras, cfg, args.opt_spp, seed)
 
     print("Run optimization:")
-    losses, psnrs = [], []
+    losses, psnrs, step_seconds = [], [], []
     for it in range(args.iterations):
+        t0 = time.perf_counter()
         for p in params.values():
             p.grad = None
         img = render_train(train.to_scene(params, prims), it)
@@ -137,22 +141,27 @@ def main(argv=None) -> dict:
         opt.step(params)
         losses.append(float(loss.detach()))
         psnrs.append(float(psnr(ref_image, img)))
+        step_seconds.append(time.perf_counter() - t0)  # the reads above wait for the step
         if (it + 1) % args.write_image_every == 0:
             image.write_image(join(args.output, f"frame_{it:04d}.png"), img)
         print(f"-- step {it + 1}/{args.iterations} | psnr={psnrs[-1]:.4f} "
               f"| loss={losses[-1]:.6f}", flush=True)
     print("Done")
+    train_peak_bytes = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
 
     result = train.to_scene({k: v.detach() for k, v in params.items()}, prims)
     save_asset(join(args.output, "refined_asset"), result, cameras,
                integrator={"type": "volprim_rf", "max_depth": args.max_depth,
                            "kernel_type": args.kernel})
+    t0 = time.perf_counter()
     with torch.no_grad():
         final = _batch(result, cameras, cfg, args.ref_spp, 1000)
-    image.write_image(join(args.output, "refined.png"), final)
     final_psnr = float(psnr(ref_image, final))
+    final_seconds = time.perf_counter() - t0
+    image.write_image(join(args.output, "refined.png"), final)
     print(f"PSNR: {final_psnr:.4f}")
-    return dict(losses=losses, psnrs=psnrs, final_psnr=final_psnr)
+    return dict(losses=losses, psnrs=psnrs, final_psnr=final_psnr, step_seconds=step_seconds,
+                final_seconds=final_seconds, train_peak_bytes=train_peak_bytes)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """What the port's tools share: the device they run on (all of them); and
-for the quality studies (convergence_eval, analyze_rf, diag2m) the card's
-line printed beside every time, a synchronised clock, the fixed pixel
-subsample and the permuted scene of their exact references, PSNR and the
-JSON line each prints last."""
+for the quality studies (convergence_eval, analyze_rf, diag2m, band262k,
+refine_truck, truck_bound) the card's line printed beside every time, a
+synchronised clock, the fixed pixel subsample and the permuted scene of
+their exact references, PSNR and the JSON line each prints last; for
+refine_truck and truck_bound the camera ring and the block-streamed exact
+image."""
 
 from __future__ import annotations
 
@@ -16,6 +18,10 @@ import torch
 
 # pixels of the fixed subsample an exact reference is rendered on
 SUBSAMPLE = 4096
+# the camera ring of refine_truck and truck_bound (tools/refine_truck.py:82-88)
+RING_RADIUS, RING_FOV = 3.3, 50.0
+# rays a call of the exact integrator in exact_image (tools/refine_truck.py:109)
+EXACT_BLOCK = 16384
 
 
 def device_of(cpu: bool) -> torch.device:
@@ -79,3 +85,45 @@ def emit(results: dict) -> dict:
     """Print ``results`` as one JSON line (the tool's last) and return it."""
     print(json.dumps(results), flush=True)
     return results
+
+
+def ring_cam(name: str, idx: float, count: int, elev: float, res: int):
+    """A camera on the ring at angle 2 pi idx / count about the y axis,
+    RING_RADIUS from it at height ``elev``, looking at the origin, fov
+    RING_FOV, a square film of ``res`` (tools/refine_truck.py:82-88)."""
+    from ..scene import CameraSpecs, look_at
+
+    ang = 2.0 * np.pi * idx / count
+    pos = [RING_RADIUS * np.sin(ang), elev, -RING_RADIUS * np.cos(ang)]
+    return CameraSpecs(name=name, width=res, height=res,
+                       to_world=look_at(pos, [0, 0, 0], [0, 1, 0]), fov=RING_FOV)
+
+
+def sample_seed(seed: int, sample: int) -> int:
+    """The generator seed of ``sample`` of a view seeded ``seed``."""
+    return seed * 65536 + sample
+
+
+@torch.no_grad()
+def exact_image(scene, cam, spp: int, seed: int, cfg, block: int = EXACT_BLOCK) -> torch.Tensor:
+    """The exact-order integrator's image of ``cam`` [H, W, 3] on the
+    scene's device: per sample, one jittered ray per pixel (the in-pixel
+    offsets drawn by a ``torch.Generator`` seeded ``sample_seed(seed,
+    sample)``), the rays through ``rf.radiance`` under ``cfg`` in blocks of
+    ``block``, the samples averaged. Each sample lands in its own pixel
+    (box filter), so this is the estimator of ``models.render`` at ``spp``;
+    its draws are not jax.random's, so images agree in distribution."""
+    from ..models import rf
+    from ..scene.cameras import film_coords, rays_from_pixels
+
+    dev = scene.device
+    n = cam.height * cam.width
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    for s in range(spp):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(sample_seed(seed, s))
+        o, d = rays_from_pixels(cam, *film_coords(cam, gen, jitter=True, device=dev))
+        for b0 in range(0, n, block):
+            sl = slice(b0, min(b0 + block, n))
+            acc[sl] += rf.radiance(scene, None, o[sl], d[sl], cfg, gen)
+    return (acc / spp).reshape(cam.height, cam.width, 3)
