@@ -1,0 +1,28 @@
+"""A fault planted in the program: a frame altered where it is produced,
+the 16 x 16 pixels at its center set to 0. The viewer's comparison has to
+catch it."""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+@contextlib.contextmanager
+def plant():
+    from volprim_tpu_torch.models import rf_tiled
+
+    render = rf_tiled.render_state
+
+    def altered(*a, **k):
+        img = render(*a, **k).clone()
+        h, w = img.shape[0] // 2, img.shape[1] // 2
+        img[h - 8:h + 8, w - 8:w + 8] = 0.0
+        return img
+
+    rf_tiled.render_state = altered
+    try:
+        yield
+    finally:
+        rf_tiled.render_state = render

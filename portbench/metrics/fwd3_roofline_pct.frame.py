@@ -1,0 +1,10 @@
+"""The forward compositor (csrc/composite3_fwd.cu, kernel fwd3_kernel) in
+the frame cells: least time / its device time, in %."""
+
+from portbench.metrics._roofline import share
+
+
+def read(rec):
+    if rec["unit"] != "frame":
+        return None
+    return share(rec, "fwd3", "fwd3_kernel")
