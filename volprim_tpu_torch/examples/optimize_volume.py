@@ -41,6 +41,7 @@ from ..optim import BoundedAdam, l1, psnr
 from ..scene import CameraSpecs, EllipsoidScene, lattice_init, load_vol, procedural_smoke, save_asset
 from ..scene.cameras import look_at, rotate_x, rotate_y
 from ..utils import image
+from ..utils.spans import span, spanned
 
 
 def parser() -> argparse.ArgumentParser:
@@ -136,6 +137,7 @@ def _generator(dev, seed: int) -> torch.Generator:
     return gen
 
 
+@spanned("optimize_volume.step")
 def train_step(params, opt, cameras, cfg, emitter, ref_image, args, seed: int, extent: float):
     """One step: render (with ``args.grad_spp`` adjoint samples where they
     differ from ``args.opt_spp``), L1 against the reference, backward,
@@ -151,7 +153,8 @@ def train_step(params, opt, cameras, cfg, emitter, ref_image, args, seed: int, e
         img = render_batch(scene, cameras, tomography.radiance, cfg, emitter,
                            spp=args.opt_spp, generator=_generator(dev, seed))
     loss = l1(ref_image, img)
-    loss.backward()
+    with span("autograd.backward"):
+        loss.backward()
     img = img.detach()
     opt.step(params)
     return float(loss.detach()), float(psnr(ref_image, img)), img

@@ -16,7 +16,9 @@ the log-transmittance prefix with the ``beta_kill`` cutoff, and SH emission.
   ``csrc/composite3_bwd.cu``; CPU tensors take the plain versions. The
   launches are counted in ``composite_tiles3.launches`` and
   ``composite_tiles3_bwd.launches``. :func:`forward3` is its forward with
-  the profiling counters (segments walked and live per tile);
+  the profiling counters (segments walked and live per tile), which
+  :func:`composite_tiles3` adds to ``utils.spans``' counters
+  ``composite3.segments_walked`` / ``segments_live`` while a profiler runs;
 - ``compact`` walks each tile's columns that meet its ray cone as one
   packed stream (:func:`_stream`), ``order_band`` corrects each pair's
   transmittance prefix for the entry order of the pairs within that many
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops import sh
+from ..utils import spans
 from . import _build
 
 _FEAT = 16
@@ -643,6 +646,7 @@ def _launch_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, seg, extent2, max_depth,
     return gpf, gsh
 
 
+@spans.spanned("composite3.fwd")
 def forward3(d8, pf, sh3, n_seg_t, seg=256, extent2=9.0, max_depth=128,
              beta_kill=0.01, sh_k=16, compact=False, order_band=0, early_exit=False):
     """The forward compositor with its profiling counters, as JAX's
@@ -684,6 +688,7 @@ def forward3_ablated(abl, d8, pf, sh3, n_seg_t, seg=256, extent2=9.0, max_depth=
 forward3_ablated.launches = 0
 
 
+@spans.spanned("composite3.bwd")
 def composite_tiles3_bwd(d8, pf, sh3, n_seg_t, g_l, g_beta, seg=256,
                          extent2=9.0, max_depth=128, beta_kill=0.01, sh_k=16,
                          compact=False, order_band=0):
@@ -712,11 +717,13 @@ class _Composite3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, d8, pf, sh3, n_seg_t, *args):
-        out = forward3(d8, pf, sh3, n_seg_t, *args)[:2]
+        l_out, beta, walked, live = forward3(d8, pf, sh3, n_seg_t, *args)
+        spans.count("composite3.segments_walked", walked)
+        spans.count("composite3.segments_live", live)
         ctx.save_for_backward(d8, pf, sh3, n_seg_t)
         ctx.args = args[:-1]
         ctx.set_materialize_grads(True)
-        return out
+        return l_out, beta
 
     @staticmethod
     def backward(ctx, g_l, g_beta):

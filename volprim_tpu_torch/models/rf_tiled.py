@@ -52,6 +52,12 @@ JAX's does: after the cull ("cull") or the pack ("pack"), or inside each
 tile block after the column gather ("gather_pf") or the SH gather
 ("gather"), with a cheap probe of what was computed (sums times 1e-12,
 broadcast to the tiles) so that the stages before it can be timed.
+
+Under ``torch.profiler`` the fused route's stages are ranges of
+``utils.spans``: ``rf_tiled.build_state`` and ``rf_tiled.render_state``,
+and inside a frame ``rf_tiled.layout`` (the tile grid and the camera's
+uploads), ``rf_tiled.cull``, ``rf_tiled.pack``, ``rf_tiled.gather`` and
+``rf_tiled.composite`` (the sample loop around the compositor).
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from ..ops.kernels import Kernel
 from ..parallel.mesh import gather_blocks
 from ..scene.cameras import CameraSpecs
 from ..scene.ellipsoids import EllipsoidScene
+from ..utils.spans import span, spanned
 from .base import pad_primitives
 
 _SH = 16  # SH coefficients per channel block of the v1/v2 table
@@ -184,6 +191,7 @@ class RFTiledState:
     sh48: Optional[torch.Tensor] = None
 
 
+@spanned("rf_tiled.build_state")
 def build_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledState:
     """Morton-sort, cluster and pack the scene for tiled rendering (or,
     with ``use_clusters=False``, keep it as it is with one cull sphere per
@@ -328,6 +336,7 @@ def _tile_layout(camera: CameraSpecs, cfg: RFTiledConfig, device):
     )
 
 
+@spanned("rf_tiled.render_state")
 def render_state(
     state: RFTiledState,
     camera: CameraSpecs,
@@ -355,7 +364,8 @@ def render_state(
     so frames with budget classes or refinement are statistically equal."""
     _check_config(cfg)
     dev = state.cull_centers.device
-    px0, py0, tile_ids, unshuffle = _tile_layout(camera, cfg, dev)
+    with span("rf_tiled.layout"):
+        px0, py0, tile_ids, unshuffle = _tile_layout(camera, cfg, dev)
     film_tiles = px0.shape[0]
     if mesh is not None:
         if film_tiles % mesh.size:
@@ -385,11 +395,12 @@ def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed,
     def scalar(v):
         return torch.tensor(v, dtype=f32, device=dev)
 
-    origin = torch.as_tensor(camera.to_world[:3, 3], dtype=f32, device=dev)
-    rot = torch.as_tensor(camera.to_world[:3, :3], dtype=f32, device=dev)
-    focal = scalar(camera.focal_length)
-    ppx = scalar(camera.width / 2.0 - camera.cx)
-    ppy = scalar(camera.height / 2.0 - camera.cy)
+    with span("rf_tiled.layout"):  # the camera's uploads
+        origin = torch.as_tensor(camera.to_world[:3, 3], dtype=f32, device=dev)
+        rot = torch.as_tensor(camera.to_world[:3, :3], dtype=f32, device=dev)
+        focal = scalar(camera.focal_length)
+        ppx = scalar(camera.width / 2.0 - camera.cx)
+        ppy = scalar(camera.height / 2.0 - camera.cy)
 
     def dirs_cols(px, py):
         """Unit ray directions as three [T, RT] component arrays."""
@@ -401,113 +412,114 @@ def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed,
         inv = 1.0 / torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
         return ddx * inv, ddy * inv, ddz * inv
 
-    # ---- per-frame culling: one bounding cone per tile -------------------
-    dnx, dny, dnz = dirs_cols(px0 + 0.5, py0 + 0.5)
-    ax = torch.stack([dnx.mean(dim=1), dny.mean(dim=1), dnz.mean(dim=1)], dim=-1)
-    axis = ax / torch.sqrt(torch.sum(ax * ax, dim=-1, keepdim=True))
-    cos_half = torch.amin(
-        dnx * axis[:, 0:1] + dny * axis[:, 1:2] + dnz * axis[:, 2:3], dim=1
-    )
-    half = torch.arccos(torch.clamp(cos_half, -1.0, 1.0)) + 1.5 / focal
-    cos_half = torch.cos(half)
-
     use_fused = cfg.backend == "fused"
     resort = cfg.prim_resort if cfg.prim_resort is not None else not use_fused
-    shortlist_kw = dict(cfg=cfg, spp=spp, seed=seed, jitter=jitter, film_tiles=film_tiles)
-    if not state.clustered:
-        # flat culling: every primitive's sphere against every tile cone
-        keys = tiling.cone_cull_keys_batch(
-            origin, axis, cos_half, state.cull_centers, state.cull_radii
+    with span("rf_tiled.cull"):
+        # ---- per-frame culling: one bounding cone per tile ---------------
+        dnx, dny, dnz = dirs_cols(px0 + 0.5, py0 + 0.5)
+        ax = torch.stack([dnx.mean(dim=1), dny.mean(dim=1), dnz.mean(dim=1)], dim=-1)
+        axis = ax / torch.sqrt(torch.sum(ax * ax, dim=-1, keepdim=True))
+        cos_half = torch.amin(
+            dnx * axis[:, 0:1] + dny * axis[:, 1:2] + dnz * axis[:, 2:3], dim=1
         )
-        ids, valid = tiling.shortlist(keys, s)
+        half = torch.arccos(torch.clamp(cos_half, -1.0, 1.0)) + 1.5 / focal
+        cos_half = torch.cos(half)
+
+        if not state.clustered:
+            # flat culling: every primitive's sphere against every tile cone
+            keys = tiling.cone_cull_keys_batch(
+                origin, axis, cos_half, state.cull_centers, state.cull_radii
+            )
+            ids, valid = tiling.shortlist(keys, s)
+        else:
+            gc = cfg.coarse_group
+            use_classes = bool(cfg.budget_classes) and use_fused  # fused only, as in JAX
+            id_map = strips = None
+            if gc > 1 and n_tiles % gc == 0:
+                # ---- two-level cull: strip cones -> per-tile refinement ----------
+                n_coarse = n_tiles // gc
+                ax_g = axis.reshape(n_coarse, gc, 3)
+                c_axis = ax_g.mean(dim=1)
+                c_axis = c_axis / torch.sqrt(torch.sum(c_axis * c_axis, dim=-1, keepdim=True))
+                # the strip's half-angle covers every member tile's cone
+                cos_between = torch.sum(ax_g * c_axis[:, None, :], dim=-1)
+                ang = torch.arccos(torch.clamp(cos_between, -1.0, 1.0)) + torch.arccos(
+                    torch.clamp(cos_half.reshape(n_coarse, gc), -1.0, 1.0)
+                )
+                c_cos = torch.cos(torch.amax(ang, dim=1))
+                # third level: exact selection over superclusters, expanded back to
+                # their Morton-contiguous member clusters
+                sg = state.super_group
+                ncl_total = state.cull_centers.shape[0]
+                keys_s = tiling.cone_cull_keys_batch(
+                    origin, c_axis, c_cos, state.sup_centers, state.sup_radii
+                )
+                k_sup = min(
+                    max(1, -(-cfg.coarse_factor * k_cl // sg)), state.sup_centers.shape[0]
+                )
+                sup_ids, sup_valid = tiling.shortlist(keys_s, k_sup)
+                offs_s = torch.arange(sg, device=dev)
+                cl_c = (sup_ids[..., None] * sg + offs_s).reshape(n_coarse, k_sup * sg)
+                cl_c = torch.clamp(cl_c, max=ncl_total - 1)
+                k_c = k_sup * sg
+                # member spheres come as wide [4, sg] rows (one gather per strip)
+                nsup_t = state.suprows.shape[0] - 1
+                sup_safe = torch.where(sup_valid, sup_ids, torch.full_like(sup_ids, nsup_t))
+                cc = (
+                    state.suprows[sup_safe.reshape(-1)]
+                    .reshape(n_coarse, k_sup, 4, sg)
+                    .permute(0, 2, 1, 3)
+                    .reshape(n_coarse, 4, k_c)
+                )
+
+                def rep(a):
+                    return torch.repeat_interleave(a, gc, dim=0)
+
+                keys = tiling.cone_cull_keys_cols(
+                    origin, axis, cos_half,
+                    rep(cc[:, 0]), rep(cc[:, 1]), rep(cc[:, 2]), rep(cc[:, 3]),
+                )
+                id_map = rep(cl_c)
+                strips = (cl_c, cc)  # the strips' candidate clusters and spheres
+                if not use_classes:
+                    loc_ids, cl_valid = tiling.shortlist(keys, min(k_cl, k_c))
+                    cl_ids = torch.gather(id_map, 1, loc_ids)
+                    if k_cl > k_c:
+                        pad = k_cl - k_c
+                        cl_ids = torch.nn.functional.pad(cl_ids, (0, pad))
+                        cl_valid = torch.nn.functional.pad(cl_valid, (0, pad))
+            else:
+                keys = tiling.cone_cull_keys_batch(
+                    origin, axis, cos_half, state.cull_centers, state.cull_radii
+                )
+                if not use_classes:
+                    cl_ids, cl_valid = tiling.shortlist(keys, k_cl)
+
+            if not use_fused:
+                ids, valid = clusters.expand_cluster_ids(cl_ids, cl_valid, cs)
+                if resort:
+                    ids, valid = _resort(state, ids, valid, origin, axis, resort)
+    if not state.clustered or not use_fused:
         return _render_shortlist(state, emitter, ids, valid, origin, dirs_cols, px0, py0,
-                                 tile_ids, **shortlist_kw)
+                                 tile_ids, cfg=cfg, spp=spp, seed=seed, jitter=jitter,
+                                 film_tiles=film_tiles)
 
-    gc = cfg.coarse_group
-    use_classes = bool(cfg.budget_classes) and use_fused  # fused only, as in JAX
-    id_map = strips = None
-    if gc > 1 and n_tiles % gc == 0:
-        # ---- two-level cull: strip cones -> per-tile refinement ----------
-        n_coarse = n_tiles // gc
-        ax_g = axis.reshape(n_coarse, gc, 3)
-        c_axis = ax_g.mean(dim=1)
-        c_axis = c_axis / torch.sqrt(torch.sum(c_axis * c_axis, dim=-1, keepdim=True))
-        # the strip's half-angle covers every member tile's cone
-        cos_between = torch.sum(ax_g * c_axis[:, None, :], dim=-1)
-        ang = torch.arccos(torch.clamp(cos_between, -1.0, 1.0)) + torch.arccos(
-            torch.clamp(cos_half.reshape(n_coarse, gc), -1.0, 1.0)
-        )
-        c_cos = torch.cos(torch.amax(ang, dim=1))
-        # third level: exact selection over superclusters, expanded back to
-        # their Morton-contiguous member clusters
-        sg = state.super_group
-        ncl_total = state.cull_centers.shape[0]
-        keys_s = tiling.cone_cull_keys_batch(
-            origin, c_axis, c_cos, state.sup_centers, state.sup_radii
-        )
-        k_sup = min(
-            max(1, -(-cfg.coarse_factor * k_cl // sg)), state.sup_centers.shape[0]
-        )
-        sup_ids, sup_valid = tiling.shortlist(keys_s, k_sup)
-        offs_s = torch.arange(sg, device=dev)
-        cl_c = (sup_ids[..., None] * sg + offs_s).reshape(n_coarse, k_sup * sg)
-        cl_c = torch.clamp(cl_c, max=ncl_total - 1)
-        k_c = k_sup * sg
-        # member spheres come as wide [4, sg] rows (one gather per strip)
-        nsup_t = state.suprows.shape[0] - 1
-        sup_safe = torch.where(sup_valid, sup_ids, torch.full_like(sup_ids, nsup_t))
-        cc = (
-            state.suprows[sup_safe.reshape(-1)]
-            .reshape(n_coarse, k_sup, 4, sg)
-            .permute(0, 2, 1, 3)
-            .reshape(n_coarse, 4, k_c)
-        )
-
-        def rep(a):
-            return torch.repeat_interleave(a, gc, dim=0)
-
-        keys = tiling.cone_cull_keys_cols(
-            origin, axis, cos_half,
-            rep(cc[:, 0]), rep(cc[:, 1]), rep(cc[:, 2]), rep(cc[:, 3]),
-        )
-        id_map = rep(cl_c)
-        strips = (cl_c, cc)  # the strips' candidate clusters and spheres
-        if not use_classes:
-            loc_ids, cl_valid = tiling.shortlist(keys, min(k_cl, k_c))
-            cl_ids = torch.gather(id_map, 1, loc_ids)
-            if k_cl > k_c:
-                pad = k_cl - k_c
-                cl_ids = torch.nn.functional.pad(cl_ids, (0, pad))
-                cl_valid = torch.nn.functional.pad(cl_valid, (0, pad))
-    else:
-        keys = tiling.cone_cull_keys_batch(
-            origin, axis, cos_half, state.cull_centers, state.cull_radii
-        )
-        if not use_classes:
-            cl_ids, cl_valid = tiling.shortlist(keys, k_cl)
-
-    if not use_fused:
-        ids, valid = clusters.expand_cluster_ids(cl_ids, cl_valid, cs)
-        if resort:
-            ids, valid = _resort(state, ids, valid, origin, axis, resort)
-        return _render_shortlist(state, emitter, ids, valid, origin, dirs_cols, px0, py0,
-                                 tile_ids, **shortlist_kw)
-
-    # ---- per-frame pack: [Ncl, 16*cs] cluster rows -------------------------
-    ncl = work.num_prims // cs
-    kl = state.sh_k
-    planes = composite3.pack_fused_features(work, origin).reshape(16, ncl, cs)
-    sh_table = state.shrows
-    if cfg.cluster_sort:
-        # order each cluster's columns by the entry-distance key (row 15);
-        # one permute of the tables serves every tile's gathers
-        order = torch.argsort(planes[15], dim=-1, stable=True)  # [Ncl, cs]
-        planes = torch.gather(planes, 2, order[None].expand(16, ncl, cs))
-        sh_table = torch.gather(
-            sh_table.reshape(ncl, 3 * kl, cs), 2,
-            order[:, None, :].expand(ncl, 3 * kl, cs),
-        ).reshape(ncl, 3 * kl * cs)
-    ptab_rows = planes.permute(1, 0, 2).reshape(ncl, 16 * cs)
+    with span("rf_tiled.pack"):
+        # ---- per-frame pack: [Ncl, 16*cs] cluster rows ---------------------
+        ncl = work.num_prims // cs
+        kl = state.sh_k
+        planes = composite3.pack_fused_features(work, origin).reshape(16, ncl, cs)
+        sh_table = state.shrows
+        if cfg.cluster_sort:
+            # order each cluster's columns by the entry-distance key (row 15);
+            # one permute of the tables serves every tile's gathers
+            order = torch.argsort(planes[15], dim=-1, stable=True)  # [Ncl, cs]
+            planes = torch.gather(planes, 2, order[None].expand(16, ncl, cs))
+            sh_table = torch.gather(
+                sh_table.reshape(ncl, 3 * kl, cs), 2,
+                order[:, None, :].expand(ncl, 3 * kl, cs),
+            ).reshape(ncl, 3 * kl * cs)
+        ptab_rows = planes.permute(1, 0, 2).reshape(ncl, 16 * cs)
     if _DEBUG_STOP in ("cull", "pack"):
         probe = torch.where(torch.isfinite(keys), keys, 0.0).sum() * 1e-12
         if _DEBUG_STOP == "pack":
@@ -524,75 +536,77 @@ def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed,
         cfg.order_band for this block."""
         tb = px_b.shape[0]
         band_here = int(cfg.order_band if band is None else band)
-        seg = min(cfg.segment, k_here * cs)
-        per_seg = max(1, seg // cs)
-        if k_here % per_seg:
-            pad_k = per_seg - k_here % per_seg
-            cl_i = torch.nn.functional.pad(cl_i, (0, pad_k))
-            cl_v = torch.nn.functional.pad(cl_v, (0, pad_k))
-            k_here += pad_k
-        s_here = k_here * cs
-        # live segments per tile (valid clusters sort first)
-        n_seg_t = (-(-(cl_v.sum(dim=-1) * cs) // seg)).to(torch.int32)
-        # cluster-blocked gather: one wide row per cluster, relaid out to the
-        # compositor's [Tb, 16, S] block; invalid clusters become neutral
-        valid_row = torch.repeat_interleave(cl_v, cs, dim=-1)  # [Tb, S]
-        pf_t = (
-            ptab_rows[cl_i.reshape(-1)]
-            .reshape(tb, k_here, 16, cs)
-            .permute(0, 2, 1, 3)
-            .reshape(tb, 16, s_here)
-        )
-        pf_t = torch.where(valid_row[:, None, :], pf_t, neutral[None, :, None])
-        if _DEBUG_STOP == "gather_pf":
-            probe = (pf_t.sum() + n_seg_t.sum().to(f32)) * 1e-12
-            return probe.expand(tb, rt, 3), torch.ones((tb, rt), device=dev)
-        # invalid slots' SH needs no mask: their opacity is 0, so their
-        # emission weight is exactly 0 (the rows are real, finite clusters)
-        sh_t = (
-            sh_table[cl_i.reshape(-1)]
-            .reshape(tb, k_here, 3 * kl, cs)
-            .permute(0, 2, 1, 3)
-            .reshape(tb, 3 * kl, s_here)
-        )
-        if resort:
-            # every column of the tile in entry-distance order (pack row
-            # 15; invalid columns last), as JAX's fused block sorts them
-            order = torch.argsort(torch.where(valid_row, pf_t[:, 15], torch.inf), dim=-1,
-                                  stable=True)
-            pf_t = torch.gather(pf_t, 2, order[:, None, :].expand(pf_t.shape))
-            sh_t = torch.gather(sh_t, 2, order[:, None, :].expand(sh_t.shape))
-        if _DEBUG_STOP == "gather":
-            probe = (pf_t.sum() + sh_t.to(f32).sum() + n_seg_t.sum().to(f32)) * 1e-12
-            return probe.expand(tb, rt, 3), torch.ones((tb, rt), device=dev)
-        acc_b = torch.zeros((tb, rt, 3), dtype=f32, device=dev)
-        beta0 = None
-        for g in range(spp // fold):
-            # spp folding: `fold` samples' rays share one shortlist walk
-            cols = []
-            for j in range(fold):
-                off = _tile_offsets(seed, g * fold + j, tid_b, film_tiles, rt, jitter, dev)
-                cols.append(dirs_cols(px_b + off[..., 0], py_b + off[..., 1]))
-            dirs = [torch.cat([c[i] for c in cols], dim=1) for i in range(3)]
-            d8 = composite3.pack_direction_rows(*dirs)
-            l, beta = composite3.composite_tiles3(
-                d8, pf_t, sh_t, n_seg_t,
-                seg=seg,
-                extent2=state.extent ** 2,
-                max_depth=cfg.max_depth if cfg.max_depth > 0 else 10**6,
-                beta_kill=cfg.beta_kill,
-                sh_k=kl,
-                compact=cfg.kernel_compact,
-                order_band=band_here,
-                early_exit=cfg.early_exit,
+        with span("rf_tiled.gather"):
+            seg = min(cfg.segment, k_here * cs)
+            per_seg = max(1, seg // cs)
+            if k_here % per_seg:
+                pad_k = per_seg - k_here % per_seg
+                cl_i = torch.nn.functional.pad(cl_i, (0, pad_k))
+                cl_v = torch.nn.functional.pad(cl_v, (0, pad_k))
+                k_here += pad_k
+            s_here = k_here * cs
+            # live segments per tile (valid clusters sort first)
+            n_seg_t = (-(-(cl_v.sum(dim=-1) * cs) // seg)).to(torch.int32)
+            # cluster-blocked gather: one wide row per cluster, relaid out to the
+            # compositor's [Tb, 16, S] block; invalid clusters become neutral
+            valid_row = torch.repeat_interleave(cl_v, cs, dim=-1)  # [Tb, S]
+            pf_t = (
+                ptab_rows[cl_i.reshape(-1)]
+                .reshape(tb, k_here, 16, cs)
+                .permute(0, 2, 1, 3)
+                .reshape(tb, 16, s_here)
             )
-            if beta0 is None:
-                beta0 = beta[:, :rt]
-            if emitter is not None:
-                l = l + beta[..., None] * emitter.eval(torch.stack(dirs, dim=-1))
-            if cfg.srgb_primitives:
-                l = srgb_to_linear(l)  # per sample
-            acc_b = acc_b + l.reshape(tb, fold, rt, 3).sum(dim=1)
+            pf_t = torch.where(valid_row[:, None, :], pf_t, neutral[None, :, None])
+            if _DEBUG_STOP == "gather_pf":
+                probe = (pf_t.sum() + n_seg_t.sum().to(f32)) * 1e-12
+                return probe.expand(tb, rt, 3), torch.ones((tb, rt), device=dev)
+            # invalid slots' SH needs no mask: their opacity is 0, so their
+            # emission weight is exactly 0 (the rows are real, finite clusters)
+            sh_t = (
+                sh_table[cl_i.reshape(-1)]
+                .reshape(tb, k_here, 3 * kl, cs)
+                .permute(0, 2, 1, 3)
+                .reshape(tb, 3 * kl, s_here)
+            )
+            if resort:
+                # every column of the tile in entry-distance order (pack row
+                # 15; invalid columns last), as JAX's fused block sorts them
+                order = torch.argsort(torch.where(valid_row, pf_t[:, 15], torch.inf), dim=-1,
+                                      stable=True)
+                pf_t = torch.gather(pf_t, 2, order[:, None, :].expand(pf_t.shape))
+                sh_t = torch.gather(sh_t, 2, order[:, None, :].expand(sh_t.shape))
+            if _DEBUG_STOP == "gather":
+                probe = (pf_t.sum() + sh_t.to(f32).sum() + n_seg_t.sum().to(f32)) * 1e-12
+                return probe.expand(tb, rt, 3), torch.ones((tb, rt), device=dev)
+        with span("rf_tiled.composite"):
+            acc_b = torch.zeros((tb, rt, 3), dtype=f32, device=dev)
+            beta0 = None
+            for g in range(spp // fold):
+                # spp folding: `fold` samples' rays share one shortlist walk
+                cols = []
+                for j in range(fold):
+                    off = _tile_offsets(seed, g * fold + j, tid_b, film_tiles, rt, jitter, dev)
+                    cols.append(dirs_cols(px_b + off[..., 0], py_b + off[..., 1]))
+                dirs = [torch.cat([c[i] for c in cols], dim=1) for i in range(3)]
+                d8 = composite3.pack_direction_rows(*dirs)
+                l, beta = composite3.composite_tiles3(
+                    d8, pf_t, sh_t, n_seg_t,
+                    seg=seg,
+                    extent2=state.extent ** 2,
+                    max_depth=cfg.max_depth if cfg.max_depth > 0 else 10**6,
+                    beta_kill=cfg.beta_kill,
+                    sh_k=kl,
+                    compact=cfg.kernel_compact,
+                    order_band=band_here,
+                    early_exit=cfg.early_exit,
+                )
+                if beta0 is None:
+                    beta0 = beta[:, :rt]
+                if emitter is not None:
+                    l = l + beta[..., None] * emitter.eval(torch.stack(dirs, dim=-1))
+                if cfg.srgb_primitives:
+                    l = srgb_to_linear(l)  # per sample
+                acc_b = acc_b + l.reshape(tb, fold, rt, 3).sum(dim=1)
         return acc_b, beta0
 
     if not use_classes:
@@ -616,8 +630,9 @@ def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed,
         sel = order[start:start + cnt]
         start += cnt
         k_eff = min(kb, kcap)
-        loc, val = tiling.shortlist(keys[sel], k_eff)
-        ids_c = loc if id_map is None else torch.gather(id_map[sel], 1, loc)
+        with span("rf_tiled.cull"):
+            loc, val = tiling.shortlist(keys[sel], k_eff)
+            ids_c = loc if id_map is None else torch.gather(id_map[sel], 1, loc)
         acc[sel] = fused_block(ids_c, val, k_eff, px0[sel], py0[sel], tile_ids[sel],
                                band)[0]
     return acc / spp
@@ -640,26 +655,27 @@ def _refine(state, cfg, acc, beta0, cl_valid, k_cl, strips, origin, axis, cos_ha
     cluster) and re-composited; the worst max(1, round(T f)) tiles keep the
     new result where their score is positive. Returns the new [T, RT, 3]."""
     n_tiles = acc.shape[0]
-    m = max(1, int(round(n_tiles * cfg.refine_fraction)))
-    trunc = torch.sum(beta0 > cfg.beta_kill, dim=1)
-    score = torch.where(cl_valid.sum(dim=-1) >= k_cl, trunc, torch.zeros_like(trunc))
-    score_sel, sel_t = refine_select(score, m)
-    k2 = min(cfg.refine_factor * k_cl, state.cull_centers.shape[0])
-    if strips is not None:
-        cl_c, cc = strips
-        strip_of = sel_t // cfg.coarse_group
-        keys_r = tiling.cone_cull_keys_cols(
-            origin, axis[sel_t], cos_half[sel_t],
-            cc[strip_of, 0], cc[strip_of, 1], cc[strip_of, 2], cc[strip_of, 3],
-        )
-        k2 = min(k2, keys_r.shape[1])
-        loc_r, cl_valid_r = tiling.shortlist(keys_r, k2)
-        cl_ids_r = torch.gather(cl_c[strip_of], 1, loc_r)
-    else:
-        keys_r = tiling.cone_cull_keys_batch(
-            origin, axis[sel_t], cos_half[sel_t], state.cull_centers, state.cull_radii
-        )
-        cl_ids_r, cl_valid_r = tiling.shortlist(keys_r, k2)
+    with span("rf_tiled.cull"):
+        m = max(1, int(round(n_tiles * cfg.refine_fraction)))
+        trunc = torch.sum(beta0 > cfg.beta_kill, dim=1)
+        score = torch.where(cl_valid.sum(dim=-1) >= k_cl, trunc, torch.zeros_like(trunc))
+        score_sel, sel_t = refine_select(score, m)
+        k2 = min(cfg.refine_factor * k_cl, state.cull_centers.shape[0])
+        if strips is not None:
+            cl_c, cc = strips
+            strip_of = sel_t // cfg.coarse_group
+            keys_r = tiling.cone_cull_keys_cols(
+                origin, axis[sel_t], cos_half[sel_t],
+                cc[strip_of, 0], cc[strip_of, 1], cc[strip_of, 2], cc[strip_of, 3],
+            )
+            k2 = min(k2, keys_r.shape[1])
+            loc_r, cl_valid_r = tiling.shortlist(keys_r, k2)
+            cl_ids_r = torch.gather(cl_c[strip_of], 1, loc_r)
+        else:
+            keys_r = tiling.cone_cull_keys_batch(
+                origin, axis[sel_t], cos_half[sel_t], state.cull_centers, state.cull_radii
+            )
+            cl_ids_r, cl_valid_r = tiling.shortlist(keys_r, k2)
     acc_r, _ = fused_block(cl_ids_r, cl_valid_r, k2, px0[sel_t], py0[sel_t],
                            tile_ids[sel_t])
     use_r = (score_sel > 0)[:, None, None]

@@ -34,6 +34,7 @@ from . import register_integrator
 from ..ops import kernels, quaternion
 from ..ops.kernels import Kernel
 from ..scene.ellipsoids import EllipsoidScene
+from ..utils import spans
 from .base import pad_primitives
 
 # (ray, primitive) pairs of one step: the memory knob. About 40 f32 [R, C]
@@ -64,6 +65,7 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+@spans.spanned("tomography.chunk")
 def _chunk_tau(o, d, ctr, scl, qt, sig, is_real, extent: float, kern: Kernel):
     """Optical depth [R] and hit count [R] of rays o, d over one chunk.
 
@@ -72,7 +74,10 @@ def _chunk_tau(o, d, ctr, scl, qt, sig, is_real, extent: float, kern: Kernel):
     from the closest point, q_min = |p + t* w|^2 in the scaled local frame
     (t* = -b / a), not as c - b^2 / a: the latter cancels in f32, which put
     the f32 scale gradients 1e-4 of their maximum from an f64 run and made
-    them depend on how the rays were blocked (the former: ~1e-6)."""
+    them depend on how the rays were blocked (the former: ~1e-6). Each
+    call, the checkpoint's recompute too, counts its rows x columns in
+    ``tomography.pair_evals``."""
+    spans.count("tomography.pair_evals", o.shape[0] * ctr.shape[0])
     rot = quaternion.to_rotation_matrix(qt)  # [C, 3, 3], world <- local
     inv_s = 1.0 / scl
     w, p = [], []
@@ -102,6 +107,7 @@ def _chunk_tau(o, d, ctr, scl, qt, sig, is_real, extent: float, kern: Kernel):
 
 
 @register_integrator("volprim_tomography")
+@spans.spanned("tomography.radiance")
 def radiance(
     primitives: EllipsoidScene,
     emitter,

@@ -19,6 +19,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.spans import spanned
+
 
 @dataclasses.dataclass
 class KeyState:
@@ -70,6 +72,7 @@ class BoundedAdam:
         the next step starts them again from zero."""
         self.state.pop(key, None)
 
+    @spanned("optim.step")
     @torch.no_grad()
     def step(
         self,

@@ -27,6 +27,7 @@ from .optim import BoundedAdam, l1, psnr
 from .parallel.mesh import Mesh, sum_grads
 from .scene.cameras import CameraSpecs
 from .scene.ellipsoids import EllipsoidScene
+from .utils.spans import span, spanned
 
 OPACITY_BOUNDS = (1e-6, 1.0 - 1e-6)
 
@@ -93,6 +94,7 @@ def render_cameras(scene: EllipsoidScene, cameras: Sequence[CameraSpecs],
     )
 
 
+@spanned("train.step")
 def train_step(
     params: Dict[str, torch.Tensor],
     opt: BoundedAdam,
@@ -115,7 +117,8 @@ def train_step(
         p.grad = None
     img = render_cameras(to_scene(params, base), cameras, cfg, spp, seed, jitter, mesh)
     loss = l1(ref_image, img)
-    loss.backward()
+    with span("autograd.backward"):
+        loss.backward()
     if mesh is not None:
         for p in params.values():
             if p.grad is None:  # every rank sums the same tensors
