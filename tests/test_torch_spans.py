@@ -163,7 +163,7 @@ def test_refine_record_counts(refine_runs):
     n = len(CAMS)
     calls = {k: v["calls"] for k, v in record["spans"].items()}
     assert calls == {"train.step": 1, "rf_tiled.build_state": 1, "rf_tiled.render_state": n,
-                     "rf_tiled.layout": 2 * n, "rf_tiled.cull": n, "rf_tiled.pack": n,
+                     "rf_tiled.layout": n, "rf_tiled.cull": n, "rf_tiled.pack": n,
                      "rf_tiled.gather": n, "rf_tiled.composite": n, "composite3.fwd": n,
                      "autograd.backward": 1, "composite3.bwd": n, "optim.step": 1}
     assert all(v["host_s"] > 0 for v in record["spans"].values())

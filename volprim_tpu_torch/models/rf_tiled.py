@@ -55,16 +55,22 @@ broadcast to the tiles) so that the stages before it can be timed.
 
 Under ``torch.profiler`` the fused route's stages are ranges of
 ``utils.spans``: ``rf_tiled.build_state`` and ``rf_tiled.render_state``,
-and inside a frame ``rf_tiled.layout`` (the tile grid and the camera's
-uploads), ``rf_tiled.cull``, ``rf_tiled.pack``, ``rf_tiled.gather`` and
-``rf_tiled.composite`` (the sample loop around the compositor).
+and inside a frame ``rf_tiled.layout`` (the film's tile layout and the
+camera's upload), ``rf_tiled.cull``, ``rf_tiled.pack``, ``rf_tiled.gather``
+and ``rf_tiled.composite`` (the sample loop around the compositor). The
+counters ``rf_tiled.layout_builds`` and ``rf_tiled.layout_hits`` count the
+tile layouts built and those served from the cache of film layouts
+(:func:`_tile_layout`).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..accel import clusters
@@ -75,7 +81,7 @@ from ..ops.kernels import Kernel
 from ..parallel.mesh import gather_blocks
 from ..scene.cameras import CameraSpecs
 from ..scene.ellipsoids import EllipsoidScene
-from ..utils.spans import span, spanned
+from ..utils.spans import count, span, spanned
 from .base import pad_primitives
 
 _SH = 16  # SH coefficients per channel block of the v1/v2 table
@@ -282,26 +288,61 @@ def _cluster_state(primitives: EllipsoidScene, cfg: RFTiledConfig) -> RFTiledSta
     )
 
 
-def _tile_layout(camera: CameraSpecs, cfg: RFTiledConfig, device):
-    """Block-major tile grid: ``(px0, py0, tile_ids, unshuffle)``, px0/py0
-    [T, RT] pixel coordinates ordered so that each run of ``coarse_group``
-    tiles is a near-square block (the strip the coarse cull bounds), and
-    ``unshuffle(acc)`` folding [T, RT, 3] back into the [H, W, 3] film."""
-    h, w = camera.height, camera.width
+# Tile layouts by film: (height, width, tile_h, tile_w, coarse_group,
+# device) -> (px0, py0, tile_ids, unshuffle), built on the device at a film's
+# first camera and shared by every later one, in any thread (least recently
+# used first out). A layout depends on its key alone; callers only read its
+# tensors (px0 + 0.5, px0[sel], px0[blk]).
+_LAYOUTS: collections.OrderedDict = collections.OrderedDict()
+_LAYOUT_CACHE = 8  # films; one is ~4 MB at 960 x 544
+_LAYOUT_LOCK = threading.Lock()
+
+
+def _tile_shape(h: int, cfg: RFTiledConfig) -> tuple:
+    """(tile_h, tile_w): cfg.tile_shape, else the tallest divisor of
+    tile_pixels up to its square root that divides the film's height."""
     if cfg.tile_shape is not None:
-        th, tw = cfg.tile_shape
-    else:
-        tp = cfg.tile_pixels
-        th = int(tp**0.5)
-        while tp % th or h % th:
-            th -= 1
-        tw = tp // th
+        return tuple(cfg.tile_shape)
+    tp = cfg.tile_pixels
+    th = int(tp**0.5)
+    while tp % th or h % th:
+        th -= 1
+    return th, tp // th
+
+
+def _tile_layout(camera: CameraSpecs, cfg: RFTiledConfig, device):
+    """The camera's film's tile layout (:func:`_build_layout`), from the
+    cache after the film's first camera. The principal point does not enter
+    it: ``cx`` / ``cy`` come in with the camera's numbers."""
+    h, w = camera.height, camera.width
+    key = (h, w, *_tile_shape(h, cfg), max(1, cfg.coarse_group), device)
+    with _LAYOUT_LOCK:
+        layout = _LAYOUTS.get(key)
+        if layout is not None:
+            _LAYOUTS.move_to_end(key)
+    if layout is not None:
+        count("rf_tiled.layout_hits", 1)
+        return layout
+    count("rf_tiled.layout_builds", 1)
+    layout = _build_layout(*key)
+    with _LAYOUT_LOCK:
+        _LAYOUTS[key] = layout
+        if len(_LAYOUTS) > _LAYOUT_CACHE:
+            _LAYOUTS.popitem(last=False)
+    return layout
+
+
+def _build_layout(h, w, th, tw, gc, device):
+    """Block-major tile grid: ``(px0, py0, tile_ids, unshuffle)``, px0/py0
+    [T, RT] f32 pixel coordinates ordered so that each run of ``gc`` tiles
+    is a near-square block (the strip the coarse cull bounds), and
+    ``unshuffle(acc)`` folding [T, RT, 3] back into the [H, W, 3] film. Made
+    on ``device``."""
     if h % th or w % tw:
         raise ValueError(f"film {w}x{h} not divisible into {tw}x{th} tiles")
     n_ty, n_tx = h // th, w // tw
     n_tiles = n_ty * n_tx
     rt = th * tw
-    gc = max(1, cfg.coarse_group)
     gb_y = max(1, int(round(gc ** 0.5)))
     while gb_y > 1 and (gc % gb_y or n_ty % gb_y or n_tx % (gc // gb_y)):
         gb_y -= 1
@@ -310,18 +351,18 @@ def _tile_layout(camera: CameraSpecs, cfg: RFTiledConfig, device):
         gb_y = 1  # fall back to row-consecutive strips
     n_gy, n_gx = n_ty // gb_y, n_tx // gb_x
     ty_of = (
-        torch.arange(n_ty).reshape(n_gy, 1, gb_y, 1).expand(n_gy, n_gx, gb_y, gb_x)
-        .reshape(-1)
+        torch.arange(n_ty, device=device).reshape(n_gy, 1, gb_y, 1)
+        .expand(n_gy, n_gx, gb_y, gb_x).reshape(-1)
     )
     tx_of = (
-        torch.arange(n_tx).reshape(1, n_gx, 1, gb_x).expand(n_gy, n_gx, gb_y, gb_x)
-        .reshape(-1)
+        torch.arange(n_tx, device=device).reshape(1, n_gx, 1, gb_x)
+        .expand(n_gy, n_gx, gb_y, gb_x).reshape(-1)
     )
-    ys = torch.arange(h).reshape(n_ty, th)[ty_of]  # [T, th]
-    xs = torch.arange(w).reshape(n_tx, tw)[tx_of]  # [T, tw]
-    py0 = ys[:, :, None].expand(n_tiles, th, tw).reshape(n_tiles, rt)
-    px0 = xs[:, None, :].expand(n_tiles, th, tw).reshape(n_tiles, rt)
+    ys = torch.arange(h, device=device).reshape(n_ty, th)[ty_of]  # [T, th]
+    xs = torch.arange(w, device=device).reshape(n_tx, tw)[tx_of]  # [T, tw]
     f32 = torch.float32
+    py0 = ys[:, :, None].expand(n_tiles, th, tw).reshape(n_tiles, rt).to(f32)
+    px0 = xs[:, None, :].expand(n_tiles, th, tw).reshape(n_tiles, rt).to(f32)
 
     def unshuffle(acc):
         return (
@@ -330,10 +371,23 @@ def _tile_layout(camera: CameraSpecs, cfg: RFTiledConfig, device):
             .reshape(h, w, 3)
         )
 
-    return (
-        px0.to(device=device, dtype=f32), py0.to(device=device, dtype=f32),
-        torch.arange(n_tiles, device=device), unshuffle,
-    )
+    return px0, py0, torch.arange(n_tiles, device=device), unshuffle
+
+
+def _camera_numbers(camera: CameraSpecs, dev):
+    """The camera's origin [3], rotation [3, 3], focal length, ppx and ppy
+    as f32 views of one tensor on ``dev``, sent in one copy: from pinned
+    memory on a card, so the host does not wait for the stream."""
+    host = np.empty(15, np.float32)
+    host[:3] = camera.to_world[:3, 3]
+    host[3:12] = camera.to_world[:3, :3].reshape(9)
+    host[12:] = (camera.focal_length, camera.width / 2.0 - camera.cx,
+                 camera.height / 2.0 - camera.cy)
+    buf = torch.from_numpy(host)
+    if dev.type == "cuda":
+        buf = buf.pin_memory()
+    nums = buf.to(dev, non_blocking=True)
+    return nums[:3], nums[3:12].view(3, 3), nums[12], nums[13], nums[14]
 
 
 @spanned("rf_tiled.render_state")
@@ -366,6 +420,7 @@ def render_state(
     dev = state.cull_centers.device
     with span("rf_tiled.layout"):
         px0, py0, tile_ids, unshuffle = _tile_layout(camera, cfg, dev)
+        cam = _camera_numbers(camera, dev)
     film_tiles = px0.shape[0]
     if mesh is not None:
         if film_tiles % mesh.size:
@@ -373,16 +428,17 @@ def render_state(
         blk = mesh.block(film_tiles)
         px0, py0, tile_ids = px0[blk], py0[blk], tile_ids[blk]
     acc = _render_tiles(
-        state, emitter, px0, py0, tile_ids, camera, cfg=cfg, spp=spp, seed=int(seed),
+        state, emitter, px0, py0, tile_ids, cam, cfg=cfg, spp=spp, seed=int(seed),
         jitter=jitter, film_tiles=film_tiles,
     )
     return unshuffle(gather_blocks(mesh, acc))
 
 
-def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed, jitter,
+def _render_tiles(state, emitter, px0, py0, tile_ids, cam, *, cfg, spp, seed, jitter,
                   film_tiles):
     """Cull, gather and composite the tiles ``tile_ids`` of a film of
-    ``film_tiles`` tiles. Returns [T, RT, 3]."""
+    ``film_tiles`` tiles seen by the camera whose numbers ``cam`` are
+    (:func:`_camera_numbers`). Returns [T, RT, 3]."""
     dev = px0.device
     f32 = torch.float32
     n_tiles, rt = px0.shape
@@ -392,15 +448,7 @@ def _render_tiles(state, emitter, px0, py0, tile_ids, camera, *, cfg, spp, seed,
     s = max(cfg.segment, (s // cfg.segment) * cfg.segment) if s >= cfg.segment else s
     k_cl = max(1, s // cs)
 
-    def scalar(v):
-        return torch.tensor(v, dtype=f32, device=dev)
-
-    with span("rf_tiled.layout"):  # the camera's uploads
-        origin = torch.as_tensor(camera.to_world[:3, 3], dtype=f32, device=dev)
-        rot = torch.as_tensor(camera.to_world[:3, :3], dtype=f32, device=dev)
-        focal = scalar(camera.focal_length)
-        ppx = scalar(camera.width / 2.0 - camera.cx)
-        ppy = scalar(camera.height / 2.0 - camera.cy)
+    origin, rot, focal, ppx, ppy = cam
 
     def dirs_cols(px, py):
         """Unit ray directions as three [T, RT] component arrays."""
