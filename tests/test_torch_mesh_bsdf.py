@@ -204,8 +204,8 @@ def test_bsdf_eval_pdf_sample_match_jax(model):
         k1, k2 = jax.random.split(key)
         s1 = np.asarray(jax.random.uniform(k1, (n,)))
         s2 = np.asarray(jax.random.uniform(k2, (n, 2)))
-    got = tb.sample_from(ta, torch.from_numpy(wi), None if s1 is None else torch.from_numpy(s1),
-                         torch.from_numpy(s2), torch.from_numpy(active))
+    got = tb.sample(ta, torch.from_numpy(wi), None if s1 is None else torch.from_numpy(s1),
+                    torch.from_numpy(s2), torch.from_numpy(active))
     want = jb.sample(ja, jnp.asarray(wi), key, jnp.asarray(active))
     g = [x.numpy() for x in got]
     w = [np.asarray(x) for x in want]
@@ -239,14 +239,14 @@ def test_frames_and_fresnel_match_jax():
 
 
 def test_sampling_in_distribution():
-    """Sampling from a generator: Diffuse's mean weight is its albedo
+    """Sampling on a generator's uniforms: Diffuse's mean weight is its albedo
     (the white furnace); Principled's sampled weights against a uniform
     hemisphere quadrature of eval, within 3% (tests/test_surfaces.py)."""
     n = 100_000
     g = torch.Generator().manual_seed(0)
     wi = torch.nn.functional.normalize(torch.tensor([[0.3, 0.1, 0.95]]), dim=-1).expand(n, 3)
     attrs = {"base_color": torch.full((n, 3), 0.7)}
-    wo, pdf, w = bsdf.Diffuse().sample(attrs, wi, g)
+    wo, pdf, w = bsdf.Diffuse().sample(attrs, wi, None, torch.rand((n, 2), generator=g))
     np.testing.assert_allclose(w.double().mean(0).numpy(), 0.7, rtol=1e-5)
     np.testing.assert_allclose((bsdf.Diffuse().eval(attrs, wi, wo) / pdf[:, None]).numpy(),
                                w.numpy(), rtol=1e-5)
@@ -255,7 +255,8 @@ def test_sampling_in_distribution():
     for rough, metal in ((0.3, 0.0), (0.7, 1.0), (0.15, 0.5)):
         attrs = {"base_color": torch.full((n, 3), 0.6), "roughness": torch.full((n,), rough),
                  "metallic": torch.full((n,), metal)}
-        wo, pdf, w = b.sample(attrs, wi, g)
+        s1 = torch.rand((n,), generator=g)
+        wo, pdf, w = b.sample(attrs, wi, s1, torch.rand((n, 2), generator=g))
         u = torch.rand((n, 2), generator=g)
         r = torch.sqrt(torch.clamp(1.0 - u[:, 0] ** 2, min=0.0))
         phi = 2 * np.pi * u[:, 1]

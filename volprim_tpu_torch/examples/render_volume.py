@@ -16,7 +16,9 @@ scale (``--sigmat_scale`` defaults to 1 there). ``--envmap`` takes an EXR
 or a ``.npy`` [H, W, 3] array; the default is ``procedural_sky()``. The
 camera is the reference scene's (fov 40, looking along +x). The render
 is timed (``utils.benchmark.single_run``) and written as EXR (or PNG) and,
-for an EXR, a PNG beside it.
+for an EXR, a PNG beside it. The render's generator is seeded with 0, and
+the path tracer's per-ray random streams make the image the same whatever
+``ray_chunk`` is.
 """
 
 from __future__ import annotations

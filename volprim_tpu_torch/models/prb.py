@@ -48,12 +48,24 @@ skipped ``lax.cond``s; every ray's result is independent of its chunk, and a
 skipped ray's carries stay as they were). The ``ray_chunk`` knob bounds the
 [R, C] and [R, 2K - 1, K] temporaries.
 
-Random numbers come from one ``torch.Generator`` on the render's device.
-Per bounce, for the live rays in order: xi in [1e-7, 1) for free flight,
-2 uniforms for NEE, 2 for the phase, 1 for Russian roulette (when on), then
-the BSDF's own draws (``ops.bsdf``; when a mesh is given). They do not
-reproduce ``jax.random`` bits; everything downstream of them is
-deterministic.
+Random numbers are counter-based (``ops.streams``): ``radiance`` takes one
+key from its ``torch.Generator`` (on the device, no host read), and every
+uniform a path uses is a hash of (key, the ray's index in the call, the
+bounce, the slot): xi in [1e-7, 1) for free flight (slot 0), 2 uniforms for
+NEE (1-2), 2 for the phase (3-4), 1 for Russian roulette (5) and 3 for the
+BSDF's ``sample`` at a surface vertex (6-8). A ray's draws are therefore
+the same bits whatever ``ray_chunk`` is, whichever other rays are live, and
+on the CPU or the card; :func:`radiance_keyed` traces rays [a, b) of a call
+given its key and a. They do not reproduce ``jax.random`` bits; everything
+downstream of them is deterministic.
+
+Spans (``utils.spans``, recorded only while a profiler runs):
+``prb.radiance``, ``prb.bounce``, ``prb.free_flight``, ``prb.optical_depth``
+(the escape test's and the shadow rays'), ``prb.collect`` (interval
+collection), ``prb.walk`` (either window walk with its kernel launch) and
+``prb.nee``; counters ``prb.ray_bounces`` (live rays entering each bounce),
+``prb.depth_pairs`` (rows x primitives that :func:`optical_depth` evaluates,
+padding included) and ``prb.walked_rays`` (rays handed to a walk).
 """
 
 from __future__ import annotations
@@ -68,14 +80,20 @@ import torch
 from ..kernels import ffwalk
 from ..ops import bsdf as bsdf_ops
 from ..ops import kernels as kernel_ops
-from ..ops import quadric
+from ..ops import quadric, streams
 from ..ops.kernels import Kernel
 from ..scene import mesh as mesh_mod
 from ..scene.ellipsoids import EllipsoidScene
+from ..utils import spans
 from . import register_integrator
 from .base import pad_primitives
 
 _BIG_T = 1e7  # effective infinity for shadow-ray segment integrals
+
+# a bounce's uniforms by slot (module docstring): xi, NEE (2), phase (2),
+# Russian roulette, the BSDF's lobe choice and direction (2)
+_XI, _NEE, _PHASE, _RR, _BSDF1, _BSDF2 = 0, 1, 3, 5, 6, 7
+N_SLOTS = 9
 
 # Stage stop of free_flight for the stage profilers (tools/ff_attrib.py):
 # None, or the stage after which free_flight returns early with
@@ -269,6 +287,7 @@ def _smallest(keys: torch.Tensor, k: int):
     return vals[:, :k], sel[:, :k]
 
 
+@spans.spanned("prb.collect")
 def _collect_intervals(primitives: EllipsoidScene, index, o, d, cfg: "PRBConfig",
                        t_start: Optional[torch.Tensor] = None):
     """The K' = ``cfg.interval_budget`` nearest [entry, exit) intervals per
@@ -501,6 +520,7 @@ def _scatter(base: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> tor
     return base.index_copy(0, idx, values.to(base.dtype))
 
 
+@spans.spanned("prb.walk")
 def _run_windows(work, cfg, o, d, xi, entry_all, exit_all, ids_all, t_budget, t_cap, act, t_min0,
                  trans0, n_windows):
     """The xla window walk over a collected table (entry_all, exit_all,
@@ -519,6 +539,7 @@ def _run_windows(work, cfg, o, d, xi, entry_all, exit_all, ids_all, t_budget, t_
     kern = cfg.kernel
     r = o.shape[0]
     dev = o.device
+    spans.count("prb.walked_rays", r)
     sig_all = work.attrs["sigma_t"][:, 0]
     alb_all = _albedo3(work)
     sprod_all = work.scale_prod()
@@ -627,6 +648,7 @@ def _f_exact_at(prims, o, d, entry, exit_t, ids, tau_fin, t_pt, k: int):
     return f_entered - torch.sum(torch.clamp(tau_full - tau_part, min=0.0), dim=1)
 
 
+@spans.spanned("prb.walk")
 def _run_windows_pallas(prims, cfg, o, d, xi, entry, exit_t, ids, t_budget, t_cap, act, t_min0,
                         trans0, n_windows):
     """The fused window walk over a collected table, then the
@@ -639,6 +661,7 @@ def _run_windows_pallas(prims, cfg, o, d, xi, entry, exit_t, ids, t_budget, t_ca
     does not report its stop position, and ``t_stop`` is t_budget where
     budget-dead, +inf elsewhere."""
     k = cfg.max_overlaps
+    spans.count("prb.walked_rays", o.shape[0])
     fin = torch.isfinite(entry)
     cp, alpha, beta = _walk_columns(prims, o, d, entry, ids)
     chi = torch.log(torch.clamp(trans0.detach(), min=1e-30)) - torch.log(
@@ -748,6 +771,7 @@ def build_ff_index(primitives: EllipsoidScene, cfg: "PRBConfig"):
                              num_real=primitives.num_prims)
 
 
+@spans.spanned("prb.free_flight")
 def free_flight(
     primitives: EllipsoidScene,
     o: torch.Tensor,
@@ -813,10 +837,11 @@ def free_flight(
         return _ff_stop_out(o, idx.to(o.dtype), trans_jump)
     if idx.numel():
         o_n, d_n, xi_n, tc_n = o[idx], d[idx], xi[idx], t_cap[idx]
-        entry, exit_t, ids, count, full_tau = _gather_intervals(
-            primitives, o_n, d_n, torch.zeros_like(xi_n), kp, cfg.chunk_size, kern=cfg.kernel,
-            coeff_gemm=cfg.coeff_gemm,
-        )
+        with spans.span("prb.collect"):
+            entry, exit_t, ids, count, full_tau = _gather_intervals(
+                primitives, o_n, d_n, torch.zeros_like(xi_n), kp, cfg.chunk_size,
+                kern=cfg.kernel, coeff_gemm=cfg.coeff_gemm,
+            )
         t_budget = torch.where(count >= kp, entry[:, -1], torch.inf)
         tau_fin = torch.where(torch.isfinite(entry), full_tau, 0.0)
         w_found, w_res, _, w_ts, w_alb, w_dens, w_trans, _ = _jump_walk(
@@ -921,6 +946,7 @@ def suggest_budgets(primitives: EllipsoidScene, o: torch.Tensor, d: torch.Tensor
     return dataclasses.replace(cfg, collect_budget=budget, max_windows=windows)
 
 
+@spans.spanned("prb.optical_depth")
 def optical_depth(
     primitives: EllipsoidScene,
     o: torch.Tensor,
@@ -935,6 +961,7 @@ def optical_depth(
     kern = cfg.kernel
     prims, c = _padded_chunks(primitives, cfg.chunk_size)
     r = o.shape[0]
+    spans.count("prb.depth_pairs", r * prims.num_prims)
     t0 = torch.zeros((r, 1), dtype=o.dtype, device=o.device)
     t1 = torch.full((r, 1), t_max, dtype=o.dtype, device=o.device)
     tau = torch.zeros((r,), dtype=o.dtype, device=o.device)
@@ -1019,20 +1046,13 @@ class _Surfaces:
         return cls(mesh_sh, bsdf, names)
 
 
-def _bounce(primitives, emitter, cfg, cfg_b, i, o, d, beta, l_acc, prev_pdf, generator,
+def _bounce(primitives, emitter, cfg, cfg_b, i, o, d, beta, l_acc, prev_pdf, u,
             ff_index=None, surf: Optional[_Surfaces] = None):
-    """One bounce of live rays. Returns (o, d, beta, l_acc, prev_pdf,
-    active)."""
+    """Bounce ``i`` of live rays, on their uniforms u [R, N_SLOTS]. Returns
+    (o, d, beta, l_acc, prev_pdf, active)."""
     rl = o.shape[0]
     dev = o.device
-
-    def uniform(*shape):
-        return torch.rand(shape, generator=generator, device=dev)
-
-    xi = 1e-7 + (1.0 - 1e-7) * uniform(rl)
-    u_nee = uniform(rl, 2) if cfg.use_nee else None
-    u_phase = uniform(rl, 2)
-    u_rr = uniform(rl) if cfg.use_rr else None
+    xi = 1e-7 + (1.0 - 1e-7) * u[:, _XI]
     active = torch.ones(rl, dtype=torch.bool, device=dev)
 
     # the nearest surface hit caps the march
@@ -1086,34 +1106,35 @@ def _bounce(primitives, emitter, cfg, cfg_b, i, o, d, beta, l_acc, prev_pdf, gen
 
     # NEE from the medium or surface vertex
     if cfg.use_nee:
-        ds_dir, ds_val, ds_pdf = emitter.sample_direction(u_nee)
-        p_nee = torch.where(at_surface[:, None], p_surf, p_int) if surf is not None else p_int
-        need_tr = (active_medium | at_surface) & (ds_pdf > 0.0)
-        tr = torch.zeros(rl, dtype=o.dtype, device=dev)
-        idx = torch.nonzero(need_tr)[:, 0]
-        if idx.numel():
-            t = transmittance(primitives, p_nee[idx], ds_dir[idx], cfg)
+        with spans.span("prb.nee"):
+            ds_dir, ds_val, ds_pdf = emitter.sample_direction(u[:, _NEE:_NEE + 2])
+            p_nee = torch.where(at_surface[:, None], p_surf, p_int) if surf is not None else p_int
+            need_tr = (active_medium | at_surface) & (ds_pdf > 0.0)
+            tr = torch.zeros(rl, dtype=o.dtype, device=dev)
+            idx = torch.nonzero(need_tr)[:, 0]
+            if idx.numel():
+                t = transmittance(primitives, p_nee[idx], ds_dir[idx], cfg)
+                if surf is not None:
+                    t = t * (~mesh_mod.occluded(surf.mesh, p_nee[idx], ds_dir[idx])).to(t.dtype)
+                tr = _scatter(tr, idx, t)
+            phase_val = eval_phase_pdf(-d, ds_dir, cfg)
+            nee_val = phase_val[:, None] * torch.ones((rl, 3), device=dev)
+            nee_pdf = phase_val
             if surf is not None:
-                t = t * (~mesh_mod.occluded(surf.mesh, p_nee[idx], ds_dir[idx])).to(t.dtype)
-            tr = _scatter(tr, idx, t)
-        phase_val = eval_phase_pdf(-d, ds_dir, cfg)
-        nee_val = phase_val[:, None] * torch.ones((rl, 3), device=dev)
-        nee_pdf = phase_val
-        if surf is not None:
-            wl = bsdf_ops.to_local(n_sh, ds_dir)
-            b_val = surf.bsdf.eval(attrs_s, wi_loc, wl, at_surface)
-            b_pdf = surf.bsdf.pdf(attrs_s, wi_loc, wl, at_surface)
-            nee_val = torch.where(at_surface[:, None], b_val, nee_val)
-            nee_pdf = torch.where(at_surface, b_pdf, nee_pdf)
-        nee_pdf_mis = nee_pdf if cfg.use_indirect else torch.zeros_like(nee_pdf)
-        lr_nee = (
-            beta * nee_val * _mis_weight(ds_pdf, nee_pdf_mis)[:, None] * tr[:, None]
-            * ds_val / torch.clamp(ds_pdf, min=1e-30)[:, None]
-        )
-        l_acc = l_acc + torch.where(need_tr[:, None], lr_nee, 0.0)
+                wl = bsdf_ops.to_local(n_sh, ds_dir)
+                b_val = surf.bsdf.eval(attrs_s, wi_loc, wl, at_surface)
+                b_pdf = surf.bsdf.pdf(attrs_s, wi_loc, wl, at_surface)
+                nee_val = torch.where(at_surface[:, None], b_val, nee_val)
+                nee_pdf = torch.where(at_surface, b_pdf, nee_pdf)
+            nee_pdf_mis = nee_pdf if cfg.use_indirect else torch.zeros_like(nee_pdf)
+            lr_nee = (
+                beta * nee_val * _mis_weight(ds_pdf, nee_pdf_mis)[:, None] * tr[:, None]
+                * ds_val / torch.clamp(ds_pdf, min=1e-30)[:, None]
+            )
+            l_acc = l_acc + torch.where(need_tr[:, None], lr_nee, 0.0)
 
     # phase sampling
-    wo, phase_pdf = _sample_phase(u_phase, d, cfg)
+    wo, phase_pdf = _sample_phase(u[:, _PHASE:_PHASE + 2], d, cfg)
     o = torch.where(active_medium[:, None], p_int, o)
     d = torch.where(active_medium[:, None], wo, d)
     prev_pdf = torch.where(active_medium, phase_pdf, prev_pdf)
@@ -1121,7 +1142,8 @@ def _bounce(primitives, emitter, cfg, cfg_b, i, o, d, beta, l_acc, prev_pdf, gen
 
     # BSDF sampling at the surface vertex
     if surf is not None:
-        wo_l, bs_pdf, bs_w = surf.bsdf.sample(attrs_s, wi_loc, generator, at_surface)
+        wo_l, bs_pdf, bs_w = surf.bsdf.sample(attrs_s, wi_loc, u[:, _BSDF1],
+                                              u[:, _BSDF2:_BSDF2 + 2], at_surface)
         surf_cont = at_surface & (bs_pdf > 0.0)
         o = torch.where(surf_cont[:, None], p_surf, o)
         d = torch.where(surf_cont[:, None], bsdf_ops.to_world(n_sh, wo_l), d)
@@ -1133,7 +1155,7 @@ def _bounce(primitives, emitter, cfg, cfg_b, i, o, d, beta, l_acc, prev_pdf, gen
     if cfg.use_rr:
         q = torch.clamp(torch.amax(beta, dim=-1), max=0.99)
         if (i + 1) > cfg.rr_depth:
-            active = active & (u_rr < q)
+            active = active & (u[:, _RR] < q)
             beta = beta / torch.clamp(q, min=1e-6)[:, None]
     active = active & torch.any(beta > 0.005, dim=-1)
     return o, d, beta, l_acc, prev_pdf, active
@@ -1151,29 +1173,44 @@ def radiance(
     bsdf=None,
 ) -> torch.Tensor:
     """Path-traced radiance [R, 3] for rays o, d [R, 3] on their device,
-    drawing from ``generator`` (a ``torch.Generator`` on that device,
-    required). Rays are traced in chunks of ``cfg.ray_chunk``.
+    whose random streams hang off one key drawn from ``generator`` (a
+    ``torch.Generator`` on that device, required): :func:`radiance_keyed`
+    with that key and ray indices 0..R-1.
 
     ``mesh`` (a :class:`scene.mesh.TriangleMesh`) adds opaque surfaces: the
     march is capped at the nearest hit and the path continues with a BSDF
     vertex. ``bsdf`` is an :mod:`ops.bsdf` model (default ``Diffuse``),
     whose attributes are interpolated from the mesh's vertex attributes."""
-    if emitter is None:
-        raise ValueError("the path tracer needs an environment emitter")
     if generator is None:
         raise ValueError("radiance needs an explicit torch.Generator on the rays' device")
+    return radiance_keyed(primitives, emitter, o, d, cfg, streams.draw_key(generator, o.device),
+                          mesh=mesh, bsdf=bsdf)
+
+
+@spans.spanned("prb.radiance")
+def radiance_keyed(primitives: EllipsoidScene, emitter, o: torch.Tensor, d: torch.Tensor,
+                   cfg: PRBConfig, key: torch.Tensor, first: int = 0, mesh=None,
+                   bsdf=None) -> torch.Tensor:
+    """:func:`radiance` on the streams of ``key`` (``ops.streams.draw_key``'s
+    [1] int64 tensor), ray j drawing as ray ``first + j``: rays [a, b) of a
+    call given its key and ``first=a`` give rows [a, b) of the whole call's
+    radiance. Rays are traced in chunks of ``cfg.ray_chunk``."""
+    if emitter is None:
+        raise ValueError("the path tracer needs an environment emitter")
     ff_index = build_ff_index(primitives, cfg) if cfg.use_clusters else None
     surf = _Surfaces.of(mesh, bsdf) if mesh is not None else None
+    table = streams.bounce_table(key, cfg.num_bounces, N_SLOTS)
     r = o.shape[0]
+    ids = torch.arange(first, first + r, dtype=torch.int64, device=o.device)
     rc = cfg.ray_chunk if cfg.ray_chunk and r > cfg.ray_chunk else r
     return torch.cat([
-        _radiance_chunk(primitives, emitter, o[s:s + rc], d[s:s + rc], cfg, generator, ff_index,
-                        surf)
+        _radiance_chunk(primitives, emitter, o[s:s + rc], d[s:s + rc], ids[s:s + rc], cfg, table,
+                        ff_index, surf)
         for s in range(0, r, rc)
     ])
 
 
-def _radiance_chunk(primitives, emitter, o, d, cfg, generator, ff_index, surf):
+def _radiance_chunk(primitives, emitter, o, d, ids, cfg, table, ff_index, surf):
     r = o.shape[0]
     dev = o.device
     beta = torch.ones((r, 3), dtype=o.dtype, device=dev)
@@ -1186,13 +1223,16 @@ def _radiance_chunk(primitives, emitter, o, d, cfg, generator, ff_index, surf):
         idx = torch.nonzero(active)[:, 0]
         if not idx.numel():
             break
-        cfg_b = cfg if i < cfg.tail_after else cfg_tail
-        o_n, d_n, beta_n, l_n, p_n, a_n = _bounce(
-            primitives, emitter, cfg, cfg_b, i, o_c[idx], d_c[idx], beta[idx], l_acc[idx],
-            prev_pdf[idx], generator, ff_index=ff_index, surf=surf,
-        )
-        o_c, d_c = _scatter(o_c, idx, o_n), _scatter(d_c, idx, d_n)
-        beta, l_acc = _scatter(beta, idx, beta_n), _scatter(l_acc, idx, l_n)
-        prev_pdf = _scatter(prev_pdf, idx, p_n)
-        active = _scatter(active, idx, a_n)
+        spans.count("prb.ray_bounces", idx.numel())
+        with spans.span("prb.bounce"):
+            cfg_b = cfg if i < cfg.tail_after else cfg_tail
+            o_n, d_n, beta_n, l_n, p_n, a_n = _bounce(
+                primitives, emitter, cfg, cfg_b, i, o_c[idx], d_c[idx], beta[idx], l_acc[idx],
+                prev_pdf[idx], streams.uniforms(table, i, ids[idx]), ff_index=ff_index,
+                surf=surf,
+            )
+            o_c, d_c = _scatter(o_c, idx, o_n), _scatter(d_c, idx, d_n)
+            beta, l_acc = _scatter(beta, idx, beta_n), _scatter(l_acc, idx, l_n)
+            prev_pdf = _scatter(prev_pdf, idx, p_n)
+            active = _scatter(active, idx, a_n)
     return l_acc

@@ -9,10 +9,9 @@ of a mesh's vertex attributes gives them.
 Directions are in the local shading frame (z = shading normal), pointing
 away from the surface: ``wi`` toward the viewer, ``wo`` the queried or
 sampled direction. ``eval`` returns the BSDF value times |cos theta_o|;
-``sample`` returns (wo, pdf, weight = eval / pdf). ``sample`` draws its
-uniforms from the caller's ``torch.Generator`` (Principled: one [...] then
-one [..., 2]; Diffuse: one [..., 2]) and passes them to ``sample_from``,
-which takes them as arguments.
+``sample`` returns (wo, pdf, weight = eval / pdf) on uniforms the caller
+draws: s1 [...] (the Principled model's lobe choice; Diffuse ignores it)
+and s2 [..., 2] (the direction).
 """
 
 from __future__ import annotations
@@ -282,17 +281,9 @@ class Principled:
         pdf = pdf + torch.where(reflect, prob_diff * torch.abs(cto) * _INV_PI, 0.0)
         return torch.where(active, pdf, 0.0)
 
-    def sample(self, attrs, wi, generator: torch.Generator, active=True):
-        """Returns (wo, pdf, weight = eval / pdf), drawing s1 [...] and then
-        s2 [..., 2] from ``generator``."""
-        shape, dev = wi.shape[:-1], wi.device
-        s1 = torch.rand(shape, generator=generator, device=dev, dtype=wi.dtype)
-        s2 = torch.rand(shape + (2,), generator=generator, device=dev, dtype=wi.dtype)
-        return self.sample_from(attrs, wi, s1, s2, active)
-
-    def sample_from(self, attrs, wi, s1, s2, active=True):
-        """:meth:`sample` on given uniforms s1 [...] (lobe choice) and s2
-        [..., 2] (the direction; both lobes use it)."""
+    def sample(self, attrs, wi, s1, s2, active=True):
+        """Returns (wo, pdf, weight = eval / pdf) on uniforms s1 [...] (lobe
+        choice) and s2 [..., 2] (the direction; both lobes use it)."""
         base, rough, metal, aniso, tint = self._params(attrs)
         cti = wi[..., 2]
         active = (cti > 0.0) & active  # reflection only: the front side
@@ -335,14 +326,8 @@ class Diffuse:
         pdf = torch.abs(wo[..., 2]) * _INV_PI
         return torch.where((wi[..., 2] > 0.0) & (wo[..., 2] > 0.0) & active, pdf, 0.0)
 
-    def sample(self, attrs, wi, generator: torch.Generator, active=True):
-        """Returns (wo, pdf, weight), drawing s2 [..., 2] from ``generator``."""
-        s2 = torch.rand(wi.shape[:-1] + (2,), generator=generator, device=wi.device,
-                        dtype=wi.dtype)
-        return self.sample_from(attrs, wi, None, s2, active)
-
-    def sample_from(self, attrs, wi, s1, s2, active=True):
-        """:meth:`sample` on given uniforms s2 [..., 2] (s1 is unused)."""
+    def sample(self, attrs, wi, s1, s2, active=True):
+        """Returns (wo, pdf, weight) on uniforms s2 [..., 2] (s1 is unused)."""
         act = (wi[..., 2] > 0.0) & active
         z = torch.sqrt(torch.clamp(1.0 - s2[..., 0], min=0.0))
         r = torch.sqrt(s2[..., 0])
